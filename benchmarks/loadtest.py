@@ -5,7 +5,7 @@ Drives N worker threads firing a mixed request stream at a running server
 warmup pre-compiles every shape this mix uses, so the measurement is of the
 WARM serving path, which is what a desk sees). Reports client-side latency
 percentiles per endpoint plus the server's own /api/metrics snapshot, as
-one JSON document (committed as benchmarks/LOADTEST_r{N}.json).
+one JSON document.
 
 The device work is serialized on one chip (one JAX runtime), so offered
 concurrency beyond ~2 mostly measures queueing — the honest serving story

@@ -1,11 +1,11 @@
-"""End-to-end desk workflow on the TPU pricing framework.
+"""End-to-end desk workflow on the pricing framework.
 
 The full loop a NIFTY options desk runs each morning, as library calls:
 
     quote → calibrate to the chain → price the book → Greeks → stress →
     exotics → hedge-backtest → risk report
 
-Run: python examples/desk_workflow.py  (CPU or TPU; ~1-2 min cold)
+Run: python examples/desk_workflow.py  (CPU or GPU)
 Every stage prints one line; the script exits non-zero on any failed sanity
 check, so it doubles as an integration smoke for the documented workflow.
 """

@@ -1,11 +1,11 @@
-"""mcos_tpu — TPU-native Monte Carlo option pricing & risk framework.
+"""mcos_tpu — Monte Carlo option pricing & risk framework in JAX.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of the reference
 Monte-Carlo-Option-Simulator (NSE/NIFTY SVJ trading-desk engine): SVJ/GBM path
-simulation (fused Pallas kernel + differentiable lax.scan), Black-Scholes
+simulation (differentiable lax.scan + a fused GPU kernel), Black-Scholes
 analytics, AD Greeks, Sobol+Brownian-bridge QMC, two-stage calibration,
 IV-surface/SABR tools, risk/stress/hedging engines, regime detection, pricing
-guards, and an HTTP serving layer — path-parallel across TPU meshes via
+guards, and an HTTP serving layer — path-parallel across device meshes via
 shard_map + psum.
 """
 

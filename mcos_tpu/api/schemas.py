@@ -2,14 +2,15 @@
 
 Field names, defaults, and nesting mirror the reference's pydantic models
 (reference: engine/app.py:53-119) so existing clients — including the
-reference's own dashboards — post the same JSON bodies unchanged.
+reference's own dashboards — post the same JSON bodies unchanged. The models
+are validated by the stdlib subset in `api/validation.py`.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Union
 
-from pydantic import BaseModel, Field, model_validator
+from mcos_tpu.api.validation import BaseModel, Field, model_validator
 
 from mcos_tpu.config import DIVIDEND_YIELD, MAX_PATHS, RISK_FREE_RATE
 from mcos_tpu.models.params import SVJParams

@@ -1,23 +1,18 @@
-"""Managed-platform / serverless entry point.
+"""Managed-platform / serverless entry point — the one CPU deployment.
 
 Role of the reference's Vercel entry (reference: api/index.py:1-13, which
 re-exports the FastAPI app with NUMBA_CACHE_DIR pointed at /tmp for the
 read-only filesystem; routing in vercel.json:44-53). The equivalents here:
 
-- the JIT compilation cache goes to /tmp (the only writable path on most
-  serverless runtimes),
-- the backend defaults to CPU unless the platform provides an accelerator
-  (managed serverless containers are CPU-shaped; the reference's serverless
-  deployment is CPU-only too),
-- `app` is the ASGI application when fastapi is installed (Cloud Run,
-  Vercel's python runtime, any Knative-style platform), and `serve_wsgi`
-  runs the stdlib transport for platforms that just exec a process.
+- the backend is the CPU unless the platform names another through
+  `MCOS_BACKEND` (managed serverless containers are CPU-shaped; the
+  reference's serverless deployment is CPU-only too),
+- the JIT compilation cache goes where JAX_COMPILATION_CACHE_DIR says (a
+  read-only filesystem sets it to a writable path), else to the fixed
+  in-checkout directory (utils/checkpoint.py),
+- `serve_wsgi` runs the stdlib transport on $PORT.
 
 Usage:
-    # Cloud Run / any ASGI platform (fastapi + uvicorn in the image):
-    uvicorn mcos_tpu.api.serverless:app --host 0.0.0.0 --port $PORT
-
-    # Process-exec platforms (stdlib only):
     python -m mcos_tpu.api.serverless
 """
 
@@ -25,32 +20,16 @@ from __future__ import annotations
 
 import os
 
-# Must run before jax initializes: serverless filesystems are read-only
-# outside /tmp, and an accelerator is only present if the platform says so.
+# Must run before jax initializes.
 os.environ.setdefault("JAX_PLATFORMS", os.environ.get("MCOS_BACKEND", "cpu"))
-
-from mcos_tpu.utils.checkpoint import enable_compilation_cache  # noqa: E402
-
-enable_compilation_cache(os.environ.get("MCOS_JIT_CACHE", "/tmp/mcos_tpu_jit"))
-
-
-def _make_app():
-    try:
-        from mcos_tpu.api.server import create_fastapi_app
-
-        return create_fastapi_app()
-    except ImportError:
-        return None
-
-
-#: ASGI application (None when fastapi is absent — use `serve_wsgi` then).
-app = _make_app()
 
 
 def serve_wsgi() -> None:
-    """Stdlib fallback: resident ThreadingHTTPServer on $PORT."""
+    """Resident ThreadingHTTPServer on $PORT."""
     from mcos_tpu.api.server import serve
+    from mcos_tpu.utils.checkpoint import enable_compilation_cache
 
+    enable_compilation_cache()
     port = int(os.environ.get("PORT", "8000"))
     serve(host="0.0.0.0", port=port).serve_forever()
 

@@ -1,7 +1,7 @@
 """Configuration substrate: market constants, parameter bounds, regime thresholds,
 calibration settings, stress grids.
 
-TPU-native re-design of the reference's constants module
+Re-design of the reference's constants module
 (reference: engine/config.py:15-165). Everything here is a *static* Python value or a
 frozen dataclass — values feed jit-compiled functions as compile-time constants or
 ordinary traced scalars; nothing here carries device state.
@@ -28,10 +28,6 @@ DEFAULT_NUM_STEPS: int = 252         # per year; scaled by maturity at price tim
 DEFAULT_TOLERANCE: float = 0.001     # 0.1% of premium (stderr alert threshold)
 MAX_PATHS: int = 2_000_000
 MIN_STEPS: int = 10                  # floor on maturity-scaled step count
-
-# TPU-specific: path counts are padded up to a multiple of this so path blocks
-# tile cleanly onto (8, 128) fp32 vregs and Pallas path blocks.
-PATH_ALIGNMENT: int = 1024
 
 # ─────────────────────────────────────────────────────────────────────────────
 # SVJ parameter bounds (reference engine/config.py:32-44)
@@ -109,7 +105,7 @@ class CalibrationConfig:
     """Two-stage calibration settings.
 
     Unlike the reference (derivative-free differential evolution with
-    `workers=1`, engine/calibration.py:195-227), the TPU engine's inner loop is
+    `workers=1`, engine/calibration.py:195-227), this engine's inner loop is
     gradient-based (Adam over a sigmoid-reparameterized box), with a vmapped
     multi-start sweep replacing the DE population. These settings carry both.
     """
@@ -121,7 +117,7 @@ class CalibrationConfig:
     stage2_moneyness_range: Tuple[float, float] = (0.80, 1.20)
     stage2_max_iter: int = 300
 
-    # Gradient optimizer settings (TPU path)
+    # Gradient optimizer settings
     learning_rate: float = 0.05
     num_restarts: int = 8            # vmapped multi-start (replaces DE population)
     ftol: float = 1e-12
@@ -173,11 +169,6 @@ def clamp_params(params: Dict[str, float]) -> Dict[str, float]:
         return value if b is None else min(max(value, b[0]), b[1])
 
     return {name: clip(name, value) for name, value in params.items()}
-
-
-def round_up(n: int, multiple: int) -> int:
-    """Round `n` up to the next multiple of `multiple` (TPU tile alignment)."""
-    return ((n + multiple - 1) // multiple) * multiple
 
 
 def scaled_steps(num_steps_per_year: int, T: float, floor: int = MIN_STEPS) -> int:

@@ -1,4 +1,4 @@
-"""American option pricing: Longstaff-Schwartz Monte Carlo on TPU.
+"""American option pricing: Longstaff-Schwartz Monte Carlo on device.
 
 Capability extension beyond the reference (European-only — NIFTY index
 options are European, but single-stock NSE options are American, and a desk
@@ -548,7 +548,7 @@ def dual_upper_bound(params: SVJParams, spot, strike, T, key, coefs, *,
     where Ṽ is discounted to t₀ and the conditional expectation is a
     one-step nested simulation (n_inner fresh transitions from the outer
     state — the (outer × inner) batch is a single vectorized kernel, the
-    shape of nested MC the TPU eats for free). Zero-mean inner noise keeps
+    shape of nested MC a vector device runs well). Zero-mean inner noise keeps
     M a martingale, so the bound stays valid (just looser) at small
     n_inner; the LSM lower bound + this upper bound bracket the true price
     with a reported duality gap. Capability absent from the reference.

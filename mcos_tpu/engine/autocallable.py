@@ -8,7 +8,7 @@ barrier, notional between the protection barrier and the coupon barrier,
 and notional * S_T/S_0 below the protection barrier (the embedded
 down-and-in short put).
 
-TPU shape: reuses the cliquet engine's periods-scan
+Device shape: reuses the cliquet engine's periods-scan
 (`simulate_period_log_returns` — only the (log S, v) carry crosses period
 boundaries, one period return emitted per reset) and reduces the
 (m, branches, paths) return cube with a vectorized first-crossing

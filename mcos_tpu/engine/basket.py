@@ -7,7 +7,7 @@ assets through a Cholesky factor. Variance processes stay asset-local (each
 v_i is driven by its own dW₂ correlated only with its own dW₁ — the standard
 multi-asset Heston reduction), and jumps are idiosyncratic.
 
-TPU shape: ONE `lax.scan` over steps with every per-asset computation
+Device shape: ONE `lax.scan` over steps with every per-asset computation
 batched on a leading asset axis — the A-asset step is the single-asset step
 on (A, paths) tensors plus one (A×A)·(A, paths) matmul for the spot-shock
 mixing. Antithetic pairing as usual.

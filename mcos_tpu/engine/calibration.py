@@ -1,6 +1,6 @@
 """Two-stage SVJ calibration engine.
 
-TPU-native re-design of the reference's calibration stack
+Re-design of the reference's calibration stack
 (reference: engine/calibration.py:29-271). Semantics preserved:
 
 - Stage 1 fits the Heston core (κ, θ, ξ, ρ, v0) on 0.95-1.05 forward
@@ -12,7 +12,7 @@ TPU-native re-design of the reference's calibration stack
 - Forward-space moneyness K/F (calibration.py:163-164); history log
   (calibration.py:244-251).
 
-Architecture differences (the TPU-first part):
+Architecture differences (the device-first part):
 
 - The differential-evolution population is a *vmapped batch*: each generation
   prices population × strikes in one fused MC call on device, instead of the

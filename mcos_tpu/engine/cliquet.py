@@ -6,7 +6,7 @@ distribution of future period returns, which a calibrated SVJ model prices
 very differently from sticky-strike BS — exactly the model-risk question a
 desk holds this framework for.
 
-TPU shape: a `lax.scan` over reset periods whose body is an inner scan over
+Device shape: a `lax.scan` over reset periods whose body is an inner scan over
 the steps inside the period — only the running (log S, v, log G) carry lives
 across steps, and one period return is emitted per outer step (no
 (steps, paths) sheet in HBM). The GBM companion legs ride the same dW₁, and

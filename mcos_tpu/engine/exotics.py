@@ -1,7 +1,7 @@
 """Exotic option pricing engine: Asian, barrier, lookback.
 
-Capability extension beyond the reference (Europeans only); BASELINE.md
-config #4. Variance reduction per payoff family:
+Capability extension beyond the reference (Europeans only). Variance
+reduction per payoff family:
 
 - **Arithmetic Asian**: control = discrete *geometric* Asian on the GBM
   companion leg (closed form `geometric_asian_bs`; Kemna-Vorst). Correlation
@@ -202,7 +202,7 @@ def exotic_payoff_and_control(
 @partial(jax.jit, static_argnames=(
     "num_paths", "num_steps", "is_call", "kind", "averaging", "knock",
     "direction", "antithetic", "control_variate", "floating", "one_touch",
-    "backend", "monitoring", "window"))
+    "monitoring", "window"))
 def _price_exotic_core(
     params: SVJParams,
     spot,
@@ -210,7 +210,6 @@ def _price_exotic_core(
     T,
     key,
     barrier=0.0,
-    seed=0,
     bridge_ctrl_exact=0.0,
     barrier_lo=0.0,
     rebate=0.0,
@@ -226,7 +225,6 @@ def _price_exotic_core(
     one_touch: bool = False,
     antithetic: bool = True,
     control_variate: bool = True,
-    backend: str = "scan",
     monitoring: str = "discrete",
     window=None,
 ) -> Dict[str, Array]:
@@ -236,22 +234,12 @@ def _price_exotic_core(
                            / jnp.asarray(spot, jnp.float32))
     bridge_log_l = jnp.log(jnp.maximum(barrier_lo, 1e-30)
                            / jnp.asarray(spot, jnp.float32))
-    if backend == "pallas":
-        from mcos_tpu.ops.pallas_kernels import svj_path_stats_pallas
-
-        stats = svj_path_stats_pallas(
-            params, spot, T, seed, num_paths=num_paths, num_steps=num_steps,
-            antithetic=antithetic, companion=control_variate,
-            bridge=bridge, bridge_up=(direction == "up"),
-            bridge_log_b=bridge_log_b, corridor=corridor,
-            bridge_log_l=bridge_log_l, window=window)
-    else:
-        stats = ops_exotics.simulate_path_stats(
-            params, spot, T, key, num_paths=num_paths, num_steps=num_steps,
-            antithetic=antithetic, companion=control_variate,
-            bridge=bridge, bridge_up=(direction == "up"),
-            bridge_log_b=bridge_log_b, corridor=corridor,
-            bridge_log_l=bridge_log_l, window=window)
+    stats = ops_exotics.simulate_path_stats(
+        params, spot, T, key, num_paths=num_paths, num_steps=num_steps,
+        antithetic=antithetic, companion=control_variate,
+        bridge=bridge, bridge_up=(direction == "up"),
+        bridge_log_b=bridge_log_b, corridor=corridor,
+        bridge_log_l=bridge_log_l, window=window)
     discount = jnp.exp(-params.r * jnp.asarray(T, jnp.float32))
 
     pay_b, ctrl_b, ctrl_exact = exotic_payoff_and_control(
@@ -310,12 +298,12 @@ def _exotic_value_and_greeks(
 
     def f(s, p_):
         return _price_exotic_core(
-            p_, s, strike, T, key, barrier, 0, 0.0, barrier_lo, rebate,
+            p_, s, strike, T, key, barrier, 0.0, barrier_lo, rebate,
             kind=kind,
             num_paths=num_paths, num_steps=num_steps, is_call=is_call,
             averaging=averaging, knock=knock, direction=direction,
             floating=floating, one_touch=one_touch, antithetic=antithetic,
-            control_variate=cv, backend="scan",
+            control_variate=cv,
             monitoring=monitoring, window=window)["price"]
 
     price, (d_spot, d_params) = jax.value_and_grad(
@@ -375,29 +363,21 @@ class ExoticEngine:
 
     def __init__(self, params: SVJParams, num_paths: int = DEFAULT_NUM_PATHS,
                  num_steps: int = 252, seed: int = 42,
-                 use_antithetic: bool = True, use_control_variate: bool = True,
-                 backend: str = "auto"):
+                 use_antithetic: bool = True, use_control_variate: bool = True):
         self.params = params
         self.num_paths = int(num_paths)
         self.num_steps = int(num_steps)
         self.seed = int(seed)
         self.use_antithetic = bool(use_antithetic)
         self.use_control_variate = bool(use_control_variate)
-        self.backend = backend
-
-    def _resolved_backend(self) -> str:
-        if self.backend != "auto":
-            return self.backend
-        return "pallas" if jax.default_backend() == "tpu" else "scan"
 
     def _run(self, spot, strike, T, *, kind, barrier=0.0, **kw) -> Dict:
         steps = scaled_steps(self.num_steps, T)
         res = _price_exotic_core(
             self.params, spot, strike, T, jax.random.key(self.seed),
-            barrier, self.seed, kind=kind, num_paths=self.num_paths,
+            barrier, kind=kind, num_paths=self.num_paths,
             num_steps=steps, antithetic=self.use_antithetic,
-            control_variate=self.use_control_variate,
-            backend=self._resolved_backend(), **kw)
+            control_variate=self.use_control_variate, **kw)
         res = jax.device_get(res)  # one transfer, not one per scalar
         out = {k: float(v) for k, v in res.items()}
         out["num_paths_used"] = self.num_paths
@@ -977,8 +957,7 @@ class ExoticEngine:
                                num_paths=self.num_paths,
                                num_steps=self.num_steps, seed=self.seed,
                                use_antithetic=self.use_antithetic,
-                               use_control_variate=self.use_control_variate,
-                               backend=self.backend)
+                               use_control_variate=self.use_control_variate)
             prices_v.append(eng.price_barrier(spot, strike, T, barrier,
                                               is_call, knock,
                                               direction)["price"])

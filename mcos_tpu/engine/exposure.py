@@ -11,7 +11,7 @@ to the XVA quantities a desk actually carries:
     PFE_q(t) = quantile_q(V_t^+)   potential future exposure
     CVA = LGD * sum_i  e^{-r t_i} EE(t_i) * [PD(t_{i-1}, t_i)]
 
-TPU design: market states at the exposure dates are sampled *exactly* —
+Design: market states at the exposure dates are sampled *exactly* —
 correlated lognormal increments date-to-date (no Euler error, dates are
 the only grid) in one `lax.scan` over dates carrying (paths, assets) log
 prices. Revaluation at each date is the closed-form jax Black-Scholes on

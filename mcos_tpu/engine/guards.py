@@ -1,6 +1,6 @@
 """Production stability guards: pre-price and post-price validation.
 
-TPU-native re-design of the reference's guard layer (reference:
+Re-design of the reference's guard layer (reference:
 engine/guards.py). Same contract: `check_pre_price` rejects unreliable
 parameterizations before any compute, `check_post_price` sanity-checks the MC
 result, `validate_simulation_output` screens terminal arrays.
@@ -67,9 +67,8 @@ class PricingGuard:
         def jump_consistency(c):
             # The engine's compensator k must equal exp(μ+σ²/2)−1; a
             # mismatch means corrupted params (guards.py:67-73). Both sides
-            # in f64 on host: comparing device-f32 exp against host np.exp
-            # falsely fails the 1e-6 tolerance on TPU (~2e-6 gap) — found
-            # by the on-TPU drive.
+            # in f64 on host: comparing a device-f32 exp against host np.exp
+            # can falsely fail the 1e-6 tolerance (f32 exp error ~1e-6).
             mu, sig = c["mu_j"], c["sigma_j"]
             if not (np.isfinite(mu) and np.isfinite(sig)):
                 return f"Jump parameters non-finite: μ_J={mu}, σ_J={sig}"

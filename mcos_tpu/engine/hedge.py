@@ -8,7 +8,7 @@ and for *path-dependent* targets (Asian, barrier, lookback) the projection
 residual is precisely the statically-unhedgeable path risk — the number a
 desk needs before it agrees to warehouse the exotic.
 
-TPU execution: the target payoff and the terminal spots come off ONE CRN
+Execution: the target payoff and the terminal spots come off ONE CRN
 device pass (the same stat scan the exotics engine prices with,
 ops/exotics.py:simulate_path_stats); the tiny (N × m) projection itself
 runs on the host in f64 — a dense call strip's Gram is near-collinear and

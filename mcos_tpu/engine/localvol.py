@@ -1,4 +1,4 @@
-"""Dupire local volatility: surface construction + TPU Monte Carlo.
+"""Dupire local volatility: surface construction + device Monte Carlo.
 
 A model family the reference does not have (its model set is BS + SVJ,
 engine/models.py): the unique diffusion σ_loc(t, S) that reprices an entire
@@ -7,7 +7,7 @@ implied-vol surface — market-fitted, SABR, or generated from the SVJ/COS
 oracle — the local-vol engine reprices vanillas consistently with it and
 prices path-dependent payoffs under the surface-consistent dynamics.
 
-Design (TPU-first):
+Design (device-first):
 
 - **Surface construction is host-side f64** (small, precision-critical —
   Dupire is a ratio of second derivatives and f32 FD noise would dominate;

@@ -13,7 +13,7 @@ pairwise-summed Brownian increments of the fine level, so corrections
 shrink like the strong error (V_l ≈ 2^{−l} for Euler + Lipschitz payoff)
 and need exponentially fewer paths per level.
 
-TPU shape: each level is one fused `lax.scan` over coarse steps (two fine
+Device shape: each level is one fused `lax.scan` over coarse steps (two fine
 sub-steps inside), jit-cached per (level, paths) shape; the level loop runs
 on the host with geometric path-count growth so recompiles stay bounded.
 

@@ -10,7 +10,7 @@ cross-check* on every MC price (different discretization, different error
 structure — disagreement localizes bugs that two MC runs sharing a kernel
 cannot see) and prices American exercise without regression noise.
 
-TPU design: one `lax.scan` over time steps whose body is a single
+Design: one `lax.scan` over time steps whose body is a single
 `jax.lax.linalg.tridiagonal_solve` — the XLA-native O(n) solver — on the
 (n_x,) grid; there is no assembly loop, the three diagonals are closed
 forms. Theta-scheme with Rannacher start-up (the first two steps run
@@ -333,7 +333,7 @@ def _adi_heston_solve(strike, T, r, q, kappa, theta, xi, rho,
     compensator −lam·kbar, the reaction gains −lam·V, and the nonlocal
     integral lam·∫V(x+y)phi(y)dy enters as ONE (n_v, n_x)·(n_x, n_x)
     matmul per step — the convolution rides the MXU, which is the
-    TPU-native reading of the PIDE (vs the reference's MC-only jumps).
+    Device-native reading of the PIDE (vs the reference's MC-only jumps).
     The integral is explicit (IMEX à la In 't Hout-Toivanen); the CS
     corrector sweep includes it, restoring second order in time.
 

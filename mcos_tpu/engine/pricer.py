@@ -1,6 +1,6 @@
 """Monte Carlo pricing runtime.
 
-TPU-native re-design of the reference's `MonteCarloEngine`
+Re-design of the reference's `MonteCarloEngine`
 (reference: engine/monte_carlo.py:249-471).
 
 Architecture:
@@ -42,7 +42,7 @@ Random drivers:
 from __future__ import annotations
 
 from functools import partial
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import jax
 import jax.numpy as jnp
@@ -57,6 +57,7 @@ from mcos_tpu.config import (
 )
 from mcos_tpu.models.params import SVJParams
 from mcos_tpu.ops import simulate
+from mcos_tpu.ops.backend import SVJ_EULER_DRAWS, simulator_for
 from mcos_tpu.ops.bs import bs_price
 
 Array = jax.Array
@@ -191,61 +192,8 @@ def mc_price_core(
 
 @partial(
     jax.jit,
-    static_argnames=(
-        "num_paths", "num_steps", "is_call", "antithetic", "control_variate",
-        "cv_mode", "cv_beta", "scheme",
-    ),
-)
-def mc_price_pallas(
-    params: SVJParams,
-    spot,
-    strikes: Array,
-    T,
-    seed,
-    *,
-    num_paths: int,
-    num_steps: int,
-    is_call: bool = True,
-    antithetic: bool = True,
-    control_variate: bool = True,
-    cv_mode: str = "companion",
-    cv_beta: str = "one",
-    scheme: str = "euler",
-) -> Dict[str, Array]:
-    """`mc_price_core` with terminal spots from the fused Pallas kernels.
-
-    Identical estimator semantics; the kernel draws its randoms from the TPU
-    hardware PRNG (different stream than threefry, same law). This is the
-    production hot path (~7-14 G path-steps/s/chip vs the 1e9 target).
-    scheme="qe" routes to the fused Andersen QE kernel (the accuracy-per-step
-    winner: ~16 steps match COS where Euler needs ~1000).
-    """
-    from mcos_tpu.ops.pallas_kernels import (svj_terminal_pallas,
-                                             svj_terminal_qe_pallas)
-
-    strikes = jnp.atleast_1d(jnp.asarray(strikes, jnp.float32))
-    sim = svj_terminal_qe_pallas if scheme == "qe" else svj_terminal_pallas
-    s_final, v_final, g_final = sim(
-        params, spot, T, seed,
-        num_paths=num_paths, num_steps=num_steps, antithetic=antithetic,
-        companion=control_variate and cv_mode == "companion",
-    )
-    discount = jnp.exp(-params.r * jnp.asarray(T, jnp.float32))
-    pay = _payoff_table(s_final, strikes, is_call)
-    out = _finalize_price(params, spot, strikes, T, discount,
-                          pay, s_final, g_final, is_call,
-                          control_variate, cv_mode, cv_beta)
-    out["s_mean"] = jnp.mean(s_final)
-    out["v_mean"] = jnp.mean(v_final)
-    out["v_max"] = jnp.max(v_final)
-    out["frac_nonfinite"] = jnp.mean(~jnp.isfinite(s_final))
-    return out
-
-
-@partial(
-    jax.jit,
     static_argnames=("is_call", "antithetic", "control_variate", "cv_mode",
-                     "cv_beta", "backend", "steps_major", "scheme"),
+                     "cv_beta", "simulator", "steps_major", "scheme"),
 )
 def mc_price_from_draws(
     params: SVJParams,
@@ -263,7 +211,7 @@ def mc_price_from_draws(
     control_variate: bool = True,
     cv_mode: str = "companion",
     cv_beta: str = "one",
-    backend: str = "scan",
+    simulator: Optional[Callable] = None,
     steps_major: bool = False,
     scheme: str = "euler",
 ) -> Dict[str, Array]:
@@ -271,8 +219,7 @@ def mc_price_from_draws(
 
     scheme="qe" interprets the draw tuple as the QE layout (z1 slot = z_x
     log-spot normals, z2 slot = u_v variance-transition *uniforms*, see
-    ops/sobol.py:sobol_qe_draws) and runs the Andersen scheme from draws —
-    fused (svj_terminal_qe_from_draws_pallas) when backend="pallas".
+    ops/sobol.py:sobol_qe_draws) and runs the Andersen scheme from draws.
 
     When `antithetic`, the second branch negates (z1, z2, z_js) and shares
     u_jump, matching monte_carlo.py:318-324 (note: negating Sobol points is a
@@ -280,62 +227,31 @@ def mc_price_from_draws(
     Used with the Sobol+Brownian-bridge driver and by the CRN
     finite-difference Greeks oracle.
 
-    backend="pallas" streams the draw arrays through the fused
-    `svj_terminal_from_draws_pallas` kernel (each draw word read exactly
-    once, both antithetic branches on one streamed block) — the production
-    default for /api/price on TPU, where the Sobol driver is the default
-    driver. Tests pin the two backends to ~1e-6 relative on the same draws.
+    The Euler scheme runs the simulator `simulator` (default:
+    `simulator_for(SVJ_EULER_DRAWS)` — the GPU draws kernel on a GPU, the
+    scan twin elsewhere). Both take identical draws, jump uniforms included,
+    and tests pin them to f32 rounding.
     """
     strikes = jnp.atleast_1d(jnp.asarray(strikes, jnp.float32))
     want_g = control_variate and cv_mode == "companion"
+    if u_jump is None:
+        # Same stream the Sobol driver would have generated (seed+1,
+        # monte_carlo.py:306-308 convention), drawn inside this jit.
+        u_jump = jax.random.uniform(
+            jax.random.key(jnp.asarray(seed, jnp.int32) + 1),
+            z1.shape, jnp.float32)
     if scheme == "qe":
-        if backend == "pallas":
-            from mcos_tpu.ops.pallas_kernels import (
-                svj_terminal_qe_from_draws_pallas)
-
-            s_final, v_all, g_final = svj_terminal_qe_from_draws_pallas(
-                params, spot, T, z1, z2, u_jump, z_js, seed=seed,
-                antithetic=antithetic, companion=want_g,
-                steps_major=steps_major)
-        else:
-            if u_jump is None:
-                u_jump = jax.random.uniform(
-                    jax.random.key(jnp.asarray(seed, jnp.int32) + 1),
-                    z1.shape, jnp.float32)
-            s_final, v_all, g_final = \
-                simulate.simulate_terminal_qe_from_draws(
-                    params, spot, T, z1, z2, u_jump, z_js,
-                    antithetic=antithetic, companion=want_g,
-                    steps_major=steps_major)
-        v_base = v_all[0]
-    elif backend == "pallas":
-        from mcos_tpu.ops.pallas_kernels import svj_terminal_from_draws_pallas
-
-        # u_jump=None → jump uniforms from the hardware PRNG inside the
-        # kernel (no (paths × steps) uniform array is ever materialized).
-        s_final, v_all, g_final = svj_terminal_from_draws_pallas(
-            params, spot, T, z1, z2, u_jump, z_js, seed=seed,
+        s_final, v_all, g_final = simulate.simulate_terminal_qe_from_draws(
+            params, spot, T, z1, z2, u_jump, z_js,
             antithetic=antithetic, companion=want_g, steps_major=steps_major)
-        v_base = v_all[0]
     else:
-        if u_jump is None:
-            # Same stream the Sobol driver would have generated (seed+1,
-            # monte_carlo.py:306-308 convention), drawn inside this jit.
-            u_jump = jax.random.uniform(
-                jax.random.key(jnp.asarray(seed, jnp.int32) + 1),
-                z1.shape, jnp.float32)
-        s_base, v_base, g_base = simulate.simulate_terminal_from_draws(
-            params, spot, T, z1, z2, u_jump, z_js, companion=want_g,
-            steps_major=steps_major)
-        if antithetic:
-            s_anti, _, g_anti = simulate.simulate_terminal_from_draws(
-                params, spot, T, -z1, -z2, u_jump, -z_js, companion=want_g,
-                steps_major=steps_major)
-            s_final = jnp.stack([s_base, s_anti])  # (2, paths)
-            g_final = jnp.stack([g_base, g_anti]) if want_g else None
-        else:
-            s_final = s_base[None]
-            g_final = g_base[None] if want_g else None
+        if not steps_major:
+            z1, z2, u_jump, z_js = z1.T, z2.T, u_jump.T, z_js.T
+        sim = simulator or simulator_for(SVJ_EULER_DRAWS)
+        s_final, v_all, g_final = sim(
+            params, spot, T, z1, z2, u_jump, z_js,
+            antithetic=antithetic, companion=want_g)
+    v_base = v_all[0]
     discount = jnp.exp(-params.r * jnp.asarray(T, jnp.float32))
 
     pay = _payoff_table(s_final, strikes, is_call)
@@ -443,7 +359,7 @@ def _convergence_core(
     series is the same martingale the host reduction produced. Payoffs are
     centered on the full-sample mean before the cumulative sums: the running
     sum then stays O(√n·σ) instead of O(n·mean), which keeps f32 prefix
-    sums accurate at 2M paths without f64 (emulated and slow on TPU).
+    sums accurate at 2M paths without f64.
     """
     s_final, _, _ = simulate.simulate_terminal(
         params, spot, T, key,
@@ -468,18 +384,24 @@ def _convergence_core(
 # ─────────────────────────────────────────────────────────────────────────────
 # Stateful wrapper (reference API surface)
 # ─────────────────────────────────────────────────────────────────────────────
-# Sobol draw sets shared across engine instances (see _sobol_draws). Bounded:
-# each slot holds ~3 (steps, paths) f32 arrays in HBM (~150 MB at 500k×25).
-# 12 slots: one default price_rqmc call adds 7 new-seed entries (replicate
-# 0 reuses the base seed) on top of the 3 warmed serving shapes, and all of
-# it must fit without evicting the serving-default entries. Guarded for the
+# Sobol draw sets shared across engine instances (see _sobol_draws). Each
+# slot holds 3 (steps, paths) f32 arrays on device (1.5 GB at 500k × 252,
+# 6 GB at the 2M-path cap). Bounded by count and by bytes: 12 slots fit one
+# default price_rqmc call (7 new-seed entries) on top of the 3 warmed
+# serving shapes; the byte budget keeps a run of cap-sized requests from
+# filling the device. The newest entry always stays. Guarded for the
 # threaded HTTP server.
 import threading
 from collections import OrderedDict
 
 _SOBOL_DRAWS_CACHE: "OrderedDict" = OrderedDict()
 _SOBOL_DRAWS_CACHE_MAX = 12
+_SOBOL_DRAWS_CACHE_MAX_BYTES = 16 << 30
 _SOBOL_DRAWS_LOCK = threading.Lock()
+
+
+def _draws_nbytes(draws) -> int:
+    return sum(x.nbytes for x in draws if x is not None)
 
 # One process-wide auto mesh (largest power-of-two device prefix), built
 # lazily on first sharded price. [None] sentinel = "computed, single device".
@@ -522,8 +444,6 @@ class MonteCarloEngine:
     Args:
         use_sobol: scrambled Sobol + Brownian bridge driver (reference default).
         use_antithetic / use_control_variate: variance reduction toggles.
-        backend: "scan" (XLA, differentiable), "pallas" (fused TPU kernel), or
-            "auto" (pallas on TPU when available, else scan).
     """
 
     def __init__(
@@ -538,7 +458,6 @@ class MonteCarloEngine:
         cv_mode: str = "companion",
         cv_beta: str = "one",
         scheme: str = "euler",
-        backend: str = "auto",
         mesh=None,
         dividends=None,
         rate_curve=None,
@@ -553,7 +472,6 @@ class MonteCarloEngine:
         self.cv_mode = cv_mode
         self.cv_beta = cv_beta
         self.scheme = scheme
-        self.backend = backend
         # Deterministic rate term structure (ops/curves.RateCurve): for
         # European/terminal payoffs only ∫r dt enters (drift and discount),
         # so pricing at the flat-equivalent rate r_eff(T) = R(T)/T is EXACT
@@ -601,7 +519,10 @@ class MonteCarloEngine:
                                     layout="steps", jump_uniforms=False)
         with _SOBOL_DRAWS_LOCK:
             _SOBOL_DRAWS_CACHE[key] = draws
-            while len(_SOBOL_DRAWS_CACHE) > _SOBOL_DRAWS_CACHE_MAX:
+            while len(_SOBOL_DRAWS_CACHE) > 1 and (
+                    len(_SOBOL_DRAWS_CACHE) > _SOBOL_DRAWS_CACHE_MAX
+                    or sum(map(_draws_nbytes, _SOBOL_DRAWS_CACHE.values()))
+                    > _SOBOL_DRAWS_CACHE_MAX_BYTES):
                 _SOBOL_DRAWS_CACHE.popitem(last=False)
         return draws
 
@@ -633,13 +554,6 @@ class MonteCarloEngine:
     def _resolved_mesh(self):
         """The pricing mesh, or None for the single-device path."""
         return resolve_mesh(self.mesh)
-
-    def _resolved_backend(self) -> str:
-        if self.backend != "auto":
-            return self.backend
-        # Pallas is the hot path on TPU (Euler and QE kernels both fused);
-        # the scan path serves CPU/debug runs and anything needing gradients.
-        return "pallas" if jax.default_backend() == "tpu" else "scan"
 
     def _price_result(self, spot, strikes, T, is_call: bool) -> Dict[str, Array]:
         spot = self._spot_eff(spot, T)
@@ -678,16 +592,7 @@ class MonteCarloEngine:
                 is_call=is_call, antithetic=self.use_antithetic,
                 control_variate=self.use_control_variate,
                 cv_mode=self.cv_mode, cv_beta=self.cv_beta,
-                backend=self._resolved_backend(), steps_major=True,
-                scheme=self.scheme,
-            )
-        if self._resolved_backend() == "pallas":
-            return mc_price_pallas(
-                params, spot, jnp.asarray(strikes), T, self.seed,
-                num_paths=self.num_paths, num_steps=steps, is_call=is_call,
-                antithetic=self.use_antithetic,
-                control_variate=self.use_control_variate,
-                cv_mode=self.cv_mode, cv_beta=self.cv_beta,
+                simulator=simulator_for(SVJ_EULER_DRAWS), steps_major=True,
                 scheme=self.scheme,
             )
         return mc_price_core(
@@ -703,8 +608,8 @@ class MonteCarloEngine:
               is_call: bool = True) -> Dict[str, float]:
         """Price one European option. Result keys match the reference
         (monte_carlo.py:273-285 docstring + :345-373)."""
-        res = jax.device_get(  # ONE host transfer (per-scalar float() pulls
-            self.price_device(spot, strike, T, is_call))  # ~10ms each)
+        res = jax.device_get(  # ONE host transfer, not one per scalar
+            self.price_device(spot, strike, T, is_call))
         return self.format_price(res, T)
 
     def price_device(self, spot: float, strike: float, T: float,
@@ -712,9 +617,8 @@ class MonteCarloEngine:
         """Enqueue the price program, return the on-device result pytree.
 
         JAX dispatch is asynchronous, so a serving handler can enqueue this
-        plus the viz programs and pay the device link round-trip ONCE with a
-        single `jax.device_get` over all of them (the same pipelining that
-        took the Greeks chain to 12 ms/contract). Pair with `format_price`.
+        plus the viz programs and wait for the device ONCE with a single
+        `jax.device_get` over all of them. Pair with `format_price`.
         """
         return self._price_result(spot, np.array([strike], np.float32), T,
                                   is_call)
@@ -780,10 +684,8 @@ class MonteCarloEngine:
         loop. Batches use independent key folds and combine by exact moment
         pooling, so the result is identical in law to one big run.
 
-        Honors the engine's antithetic/CV/cv_beta configuration, its
-        discretization `scheme`, and its resolved backend (the fused Pallas
-        kernels on TPU — each batch gets a distinct hardware-PRNG seed). The
-        random driver is always counter-based: batches must be mutually
+        Honors the engine's antithetic/CV/cv_beta configuration and its
+        discretization `scheme`. The random driver is always counter-based: batches must be mutually
         independent, and chopping a Sobol net into batches destroys its
         equidistribution — with use_sobol=True a note is logged and PRNG
         batching is used.
@@ -796,7 +698,6 @@ class MonteCarloEngine:
         spot = self._spot_eff(spot, T)
         params = self._params_T(T)
         steps = self._steps(T)
-        backend = self._resolved_backend()
         strikes = jnp.asarray([strike], jnp.float32)
         total_n = 0
         sum_mean = 0.0      # Σ nᵢ·meanᵢ
@@ -817,17 +718,8 @@ class MonteCarloEngine:
                 control_variate=self.use_control_variate,
                 cv_mode=self.cv_mode, cv_beta=self.cv_beta,
                 scheme=self.scheme)
-            if backend == "pallas":
-                # Per-batch seed: prng_seed hash-mixes its operands, so
-                # distinct ints give independent streams.
-                batch_seed = (self.seed * 1_000_003 + 7919 * batches) \
-                    & 0x7FFFFFFF
-                res = mc_price_pallas(params, spot, strikes, T,
-                                      batch_seed, **kwargs)
-            else:
-                key = jax.random.fold_in(self._key(), batches)
-                res = mc_price_core(params, spot, strikes, T, key,
-                                    **kwargs)
+            key = jax.random.fold_in(self._key(), batches)
+            res = mc_price_core(params, spot, strikes, T, key, **kwargs)
             p_i = float(res["price"][0])
             se_i = float(res["std_error"][0])
             if bs_ref is None and "bs_ref" in res:
@@ -946,9 +838,8 @@ class MonteCarloEngine:
 
         The prefix moments are reduced ON DEVICE (centered f32 cumsum — the
         centering keeps the running sum near zero so f32 carries the full
-        display precision) and only the ~num_checkpoints scalars cross the
-        link, instead of the whole payoff vector (≈4 MB at 500k paths, the
-        dominant cost of the old host-side reduction on a remote chip).
+        display precision) and only the ~num_checkpoints scalars go to the
+        host, instead of the whole payoff vector (≈4 MB at 500k paths).
         """
         counts = np.unique(np.geomspace(
             max(self.num_paths // (2 ** (num_checkpoints - 1)), 64),

@@ -15,7 +15,7 @@ inside the drift correlates with the payoff region (high-vol paths are
 the ITM put paths), which shifts quanto skew — exactly what the MC here
 captures and the BS closed form cannot.
 
-TPU shape: the same streaming scan as the core simulator
+Device shape: the same streaming scan as the core simulator
 (`_svj_step_core`) with the quanto tilt applied from the pre-step
 variance (left-point, matching the Euler drift), plus a GBM companion
 leg on the same dW1 with the *constant*-vol tilt — whose expectation is

@@ -1,6 +1,6 @@
 """Market regime detection: CALM / EVENT / CRISIS.
 
-TPU-native re-design of the reference's regime classifier
+Re-design of the reference's regime classifier
 (reference: engine/regime.py:19-165). The scoring logic is tiny scalar math —
 it stays as pure Python/numpy (putting it on device would be a kernel launch
 for six comparisons); the *windowed realized-vol* helper is vectorized so it

@@ -1,7 +1,7 @@
 """Risk engine: stress ladders, VaR/CVaR/tail metrics, liquidity stress,
 delta-hedging backtest.
 
-TPU-native re-design of the reference's risk stack (reference: engine/risk.py).
+Re-design of the reference's risk stack (reference: engine/risk.py).
 Semantics preserved; the execution model inverts:
 
 - **Stress ladders** (spot ±2/5/8%, vol ±5pts, 4% gap — risk.py:33-111):
@@ -280,7 +280,7 @@ class StressTestEngine:
         payoff-axis transforms on the SAME path set, so they merge into ONE
         strike-vectorized program; the vol ladder is the second (vmapped
         params) program. Both are enqueued before a single host sync — the
-        whole report costs 2 device programs and ONE link round-trip
+        whole report costs 2 device programs and ONE host sync
         (the per-ladder methods remain for standalone use).
         """
         gap = JUMP_SCENARIO_SIZE
@@ -667,7 +667,7 @@ def multi_asset_gbm_terminal(
     Correlation via Cholesky mixing of iid normals (the reference's 2-asset
     ρ-mixing at monte_carlo.py:227, generalized). Log-space accumulation, one
     exp at the end. The path axis shards over the mesh for 1e8+ portfolio
-    runs (BASELINE.md config #5).
+    runs (the portfolio-risk workload).
     """
     spots = jnp.asarray(spots, jnp.float32)
     sigmas = jnp.asarray(sigmas, jnp.float32)
@@ -855,7 +855,7 @@ def portfolio_var(
     it — per-device simulation, psum'd moments, and an exact distributed
     tail via per-device top-k + all_gather, so the full (num_paths,)
     return vector never materializes on any single device. 1e8+ path runs
-    (BASELINE.md config #5) hold ~num_paths/n_dev floats per chip.
+    (the portfolio-risk workload) hold ~num_paths/n_dev floats per chip.
     """
     key = key if key is not None else jax.random.key(0)
 

@@ -111,14 +111,14 @@ def _rh_delta_core(params: RoughHestonParams, spot, strike, T, key,
     (dS_T/dS0 = S_T/S0) never touches the variance recursion. The
     variance-parameter chains are NOT taken by AD — the per-step factor
     d(sqrt v)/dv = 1/(2 sqrt v) makes them exponentially heavy-tailed
-    when rough paths pin v near 0 (measured: f32 overflow to ~1e26 at
-    2048 steps on TPU) — those go through `_rh_fd_sens` CRN-FD instead,
+    when rough paths pin v near 0 (f32 overflow at thousands of steps)
+    — those go through `_rh_fd_sens` CRN-FD instead,
     mirroring the repo's gamma-by-CRN-FD-of-AD-delta convention
     (engine/greeks.py).
 
     remat_chunk=64: without it the backward pass materializes the factor
-    carry for every step (78 GB at the default workload — HBM OOM on
-    v5e); the checkpointed chunks cap residuals at ~5 GB for one extra
+    carry for every step (78 GB at the default workload, computed from
+    the shapes); the checkpointed chunks cap residuals at ~5 GB for one extra
     forward pass (ops/roughheston.py:lifted_terminal docstring).
     """
     def price_fn(s0):

@@ -15,7 +15,7 @@ so the SLV marginals match the Dupire surface (exactly in the particle
 limit; the tests bound the finite-cloud remainder at <=2 sigma across a
 chain) while the v-dynamics keep smile movement stochastic.
 
-TPU design — the particle method (Guyon & Henry-Labordere) runs entirely
+Design — the particle method (Guyon & Henry-Labordere) runs entirely
 inside one `lax.scan`: at each step the conditional expectation
 E[v_t | S_t] is estimated from the path cloud itself by binning paths in
 forward log-moneyness (`jax.ops.segment_sum` over a static bin count —

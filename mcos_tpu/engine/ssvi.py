@@ -14,7 +14,7 @@ with one ATM total-variance node theta_t per maturity and three global
 shape parameters (rho, eta, gamma). ATM consistency w(0, t) = theta_t
 holds by construction; the ATM skew is d_k w(0) = rho*theta*phi.
 
-TPU design: the fit reuses the repo's vmapped differential-evolution +
+Design: the fit reuses the repo's vmapped differential-evolution +
 Adam-polish stack (utils/optim.py) with a module-level objective and a
 traced data pytree, so repeated fits share one compiled program; the
 whole (maturities x strikes) residual grid evaluates as one broadcast

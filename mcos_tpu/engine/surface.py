@@ -1,6 +1,6 @@
 """Volatility surface engine: implied vol, SABR, arbitrage-checked splines.
 
-TPU-native re-design of the reference's surface stack
+Re-design of the reference's surface stack
 (reference: engine/surface.py). The hot op — implied-vol extraction — becomes
 a *vmapped bisection+Newton solve over the whole strike×expiry grid in one
 jit* (the reference Brent-solves one scalar at a time in nested Python loops,
@@ -67,8 +67,7 @@ def implied_vol_grid(price, S, K, T, r, q, is_call: bool = True,
     carry their information in a tiny extrinsic value on top of a large
     intrinsic one, which f32 cancellation destroys (the reference gets f64
     for free from scipy's Brent, surface.py:48-66); (b) IV grids are ≤ O(10³)
-    points — an earlier on-TPU f64 version cost ~8 minutes of emulated-f64
-    compile for a 126-point grid vs sub-ms here. 60 bisection halvings + a
+    points, so host f64 costs far less than device f64 would. 60 bisection halvings + a
     Newton polish reach ~1e-12; non-bracketed inputs (arbitrage-violating or
     stale quotes) come back NaN, mirroring the reference's None.
     """

@@ -28,31 +28,21 @@ from mcos_tpu.ops.svcj import svcj_cos_price, svcj_terminal
 Array = jax.Array
 
 
-@partial(jax.jit,
-         static_argnames=("num_paths", "num_steps", "is_call", "backend"))
+@partial(jax.jit, static_argnames=("num_paths", "num_steps", "is_call"))
 def _svcj_price_core(params: SVCJParams, spot, strikes, T, seed, *,
-                     num_paths: int, num_steps: int, is_call: bool,
-                     backend: str = "scan") -> Dict[str, Array]:
+                     num_paths: int, num_steps: int,
+                     is_call: bool) -> Dict[str, Array]:
     """Antithetic + companion-CV SVCJ pricing over a strike vector.
 
     Same estimator discipline as engine/pricer.py:mc_price_core: the
     companion GBM leg rides the SAME dW₁ (β=1 CV; its expectation is the
     BS(√v0) price — variance jumps never touch it), payoffs pool over both
-    antithetic branches, moments stay f32 on device. backend="pallas"
-    streams the fused TPU kernel (svcj_terminal_pallas), "scan" the
-    differentiable twin — same recursion, TPU-gated tests pin the pair.
+    antithetic branches, moments stay f32 on device.
     """
     strikes = jnp.atleast_1d(jnp.asarray(strikes, jnp.float32))
-    if backend == "pallas":
-        from mcos_tpu.ops.pallas_kernels import svcj_terminal_pallas
-
-        s_final, v_final, g_final = svcj_terminal_pallas(
-            params, spot, T, seed, num_paths=num_paths,
-            num_steps=num_steps, antithetic=True, companion=True)
-    else:
-        s_final, v_final, g_final = svcj_terminal(
-            params, spot, T, jax.random.key(seed), num_paths=num_paths,
-            num_steps=num_steps, antithetic=True, companion=True)
+    s_final, v_final, g_final = svcj_terminal(
+        params, spot, T, jax.random.key(seed), num_paths=num_paths,
+        num_steps=num_steps, antithetic=True, companion=True)
     discount = jnp.exp(-params.r * jnp.asarray(T, jnp.float32))
     sign = 1.0 if is_call else -1.0
     pay = jnp.maximum(sign * (s_final[..., None] - strikes), 0.0)
@@ -120,10 +110,6 @@ class SVCJEngine:
     def _steps(self, T: float) -> int:
         return scaled_steps(self.num_steps, T)
 
-    @staticmethod
-    def _backend() -> str:
-        return "pallas" if jax.default_backend() == "tpu" else "scan"
-
     def price(self, spot: float, strike, T: float,
               is_call: bool = True) -> Dict:
         from mcos_tpu.engine.pricer import resolve_mesh
@@ -144,7 +130,7 @@ class SVCJEngine:
             res = jax.device_get(_svcj_price_core(
                 self.params, spot, strikes, T, self.seed,
                 num_paths=self.num_paths, num_steps=self._steps(T),
-                is_call=is_call, backend=self._backend()))
+                is_call=is_call))
         out = {
             "price": float(res["price"][0]),
             "std_error": float(res["std_error"][0]),
@@ -207,8 +193,7 @@ class SVCJEngine:
         res = jax.device_get(_svcj_price_core(
             self.params, spot, strikes.astype(np.float32), T,
             self.seed, num_paths=self.num_paths,
-            num_steps=self._steps(T), is_call=is_call,
-            backend=self._backend()))
+            num_steps=self._steps(T), is_call=is_call))
         rows = []
         for i, k in enumerate(strikes):
             se = float(res["std_error"][i])

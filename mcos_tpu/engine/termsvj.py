@@ -11,8 +11,8 @@ piecewise-constant time-dependent SVJ process (ops/tdsvj.py):
 
 - `TDSVJEngine` — MC pricing under td dynamics with the same estimator stack
   as `MonteCarloEngine` (antithetic pairs, GBM-companion control variate,
-  pair-pooled stderr), backed by the td scan off-TPU and the fused td Pallas
-  kernel on TPU; plus the exact chained-Riccati COS oracle (`cos_chain`).
+  pair-pooled stderr), backed by the td scan; plus the exact chained-Riccati
+  COS oracle (`cos_chain`).
 - `bootstrap_calibrate_td` — the market-standard sequential bootstrap: fit
   segment s's (θ_s, ξ_s, λ_s) to expiry T_s's chain with segments 1..s−1
   frozen, using the td COS objective (no MC in the loop). Earlier expiries
@@ -89,49 +89,6 @@ def mc_price_td_core(
     return out
 
 
-@partial(
-    jax.jit,
-    static_argnames=("num_paths", "num_steps", "is_call", "antithetic",
-                     "control_variate", "cv_beta"),
-)
-def mc_price_td_pallas(
-    params: SVJParams,
-    theta_t: Array,
-    xi_t: Array,
-    lam_t: Array,
-    spot,
-    strikes: Array,
-    T,
-    seed,
-    *,
-    num_paths: int,
-    num_steps: int,
-    is_call: bool = True,
-    antithetic: bool = True,
-    control_variate: bool = True,
-    cv_beta: str = "optimal",
-) -> Dict[str, Array]:
-    """`mc_price_td_core` with terminals from the fused td Pallas kernel."""
-    from mcos_tpu.ops.pallas_kernels import svj_terminal_td_pallas
-
-    strikes = jnp.atleast_1d(jnp.asarray(strikes, jnp.float32))
-    s_final, v_final, g_final = svj_terminal_td_pallas(
-        params, theta_t, xi_t, lam_t, spot, T, seed,
-        num_paths=num_paths, num_steps=num_steps, antithetic=antithetic,
-        companion=control_variate,
-    )
-    discount = jnp.exp(-params.r * jnp.asarray(T, jnp.float32))
-    pay = _payoff_table(s_final, strikes, is_call)
-    out = _finalize_price(params, spot, strikes, T, discount,
-                          pay, s_final, g_final, is_call,
-                          control_variate, "companion", cv_beta)
-    out["s_mean"] = jnp.mean(s_final)
-    out["v_mean"] = jnp.mean(v_final)
-    out["v_max"] = jnp.max(v_final)
-    out["frac_nonfinite"] = jnp.mean(~jnp.isfinite(s_final))
-    return out
-
-
 @partial(jax.jit, static_argnames=("num_paths", "num_steps", "is_call"))
 def _td_delta_vega(params: SVJParams, theta_t, xi_t, lam_t, spot, strike,
                    T, key, *, num_paths: int, num_steps: int,
@@ -172,8 +129,6 @@ class TDSVJEngine:
             per-segment levels. Maturities beyond the last edge extend it
             flat; shorter maturities use the covering prefix (tdsvj.
             normalize_segments).
-        backend: "scan" | "pallas" | "auto" (pallas on TPU, scan elsewhere —
-            MonteCarloEngine convention).
     """
 
     def __init__(
@@ -186,7 +141,6 @@ class TDSVJEngine:
         num_paths: int = 200_000,
         num_steps: int = 512,
         seed: int = 42,
-        backend: str = "auto",
         control_variate: bool = True,
         mesh=None,
     ):
@@ -201,7 +155,6 @@ class TDSVJEngine:
         self.num_paths = num_paths
         self.num_steps = num_steps
         self.seed = seed
-        self.backend = backend
         self.control_variate = control_variate
         # None (single device), "auto" (all local devices when >1; also set
         # by MCOS_AUTO_MESH=1), or an explicit jax.sharding.Mesh — the
@@ -222,11 +175,6 @@ class TDSVJEngine:
             rho=ts.rho, v0=ts.v0, lambda_j=float(lam[0]), mu_j=ts.mu_j,
             sigma_j=ts.sigma_j, r=ts.r, q=ts.q)
         return cls(params, ends, th, xi, lam, **kwargs)
-
-    def _resolved_backend(self) -> str:
-        if self.backend != "auto":
-            return self.backend
-        return "pallas" if jax.default_backend() == "tpu" else "scan"
 
     def _step_arrays(self, T: float):
         ends, th, xi, lam = normalize_segments(
@@ -262,14 +210,9 @@ class TDSVJEngine:
                  "num_devices": int(mesh.devices.size)}
                 for i, k in enumerate(np.atleast_1d(strikes))
             ]
-        if self._resolved_backend() == "pallas":
-            res = mc_price_td_pallas(
-                self.params, th_t, xi_t, lam_t, spot, strikes_arr, T,
-                self.seed, **common)
-        else:
-            res = mc_price_td_core(
-                self.params, th_t, xi_t, lam_t, spot, strikes_arr, T,
-                jax.random.PRNGKey(self.seed), **common)
+        res = mc_price_td_core(
+            self.params, th_t, xi_t, lam_t, spot, strikes_arr, T,
+            jax.random.PRNGKey(self.seed), **common)
         price = np.asarray(res["price"])
         se = np.asarray(res["std_error"])
         raw = np.asarray(res["raw_mc_price"])

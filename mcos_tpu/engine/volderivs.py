@@ -33,8 +33,8 @@ Three exact structures make the whole module oracle-testable:
 
    so VIX futures E[√(a+b·v_T)] and VIX options E[(VIX_T − K)±] are
    one-dimensional integrals against a known density — evaluated here by
-   Gauss-Legendre in probability space (host f64; f64 on TPU is emulated and
-   slow, and this is tiny work). The QE Monte Carlo variance terminal
+   Gauss-Legendre in probability space (host f64: precision-critical and
+   tiny work). The QE Monte Carlo variance terminal
    (ops/simulate.py:simulate_terminal_qe) cross-checks the quadrature: the
    engine's simulated v_T must reproduce the analytic noncentral-χ² law.
 """

@@ -1,6 +1,6 @@
 """Model parameter pytrees.
 
-TPU-native re-design of the reference's parameter substrate
+Re-design of the reference's parameter substrate
 (reference: engine/models.py:20-194). Key difference: `SVJParams` is a JAX
 *pytree* — every field is a traced leaf, so the whole parameter set can be
 vmapped (batched calibration restarts), differentiated (exact Greeks wrt any

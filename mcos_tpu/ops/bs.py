@@ -1,6 +1,6 @@
 """Black-Scholes closed-form analytics in JAX.
 
-TPU-native re-design of the reference's scalar BS helpers
+Re-design of the reference's scalar BS helpers
 (reference: engine/monte_carlo.py:28-55 and engine/surface.py:22-45).
 Differences from the reference:
 

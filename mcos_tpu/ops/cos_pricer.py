@@ -12,9 +12,8 @@ Here the COS pricer serves as:
 2. **A fast calibration objective** — one chain evaluation is a (strikes ×
    N-terms) matvec, ~10⁶× cheaper than a 100k-path MC per strike.
 
-Host numpy complex128 by design: exactness is the point (the TPU engines
-consume its outputs as references), the arrays are tiny, and complex support
-on TPU is partial.
+Host numpy complex128 by design: exactness is the point (the device engines
+consume its outputs as references) and the arrays are tiny.
 
 Heston CF uses the Albrecher et al. "little trap" formulation (no branch-cut
 discontinuities in T). Truncation range from the first/second/fourth

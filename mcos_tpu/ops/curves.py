@@ -18,7 +18,7 @@ without touching the simulation kernels:
   host-precomputed vectors; the scan kernels are unchanged
   (engine/american.py consumes them like the dividend grids).
 
-All arithmetic is host f64 (tiny work; f64 on TPU is emulated and slow).
+All arithmetic is host f64 (tiny, precision-critical work).
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ The reference carries only a continuous dividend *yield* `q`
 options, wrong for single-stock options around ex-dates (NSE stock options
 are a large share of the reference's 50-symbol universe, js/stocks.js:2-53).
 This module adds discrete dividends as a *payoff/measure-layer* transform so
-the simulation kernels (ops/simulate.py, ops/pallas_kernels.py) stay
+the simulation kernels (ops/simulate.py, ops/draws_kernel.py) stay
 untouched — no dynamics change, no scan/Pallas twin obligation.
 
 Three models, each exact in its own terms:

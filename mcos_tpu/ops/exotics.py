@@ -1,7 +1,7 @@
 """Path-dependent simulation and exotic-payoff analytics.
 
 Capability extension beyond the reference (which prices Europeans only —
-engine/monte_carlo.py:327-335); BASELINE.md config #4 names Asian / barrier /
+engine/monte_carlo.py:327-335); the path-dependent workload names Asian / barrier /
 lookback with antithetic + control variates as a target workload.
 
 Design: one scan pass tracks the path functionals every exotic needs —
@@ -55,9 +55,7 @@ def corridor_surv_increment(x_old, x_new, var_step, dt, log_lo, log_hi,
     weight stays AD-safe (no 0·inf through `where`) — this function is
     differentiated pathwise for double-barrier Greeks.
 
-    SHARED by the scan twin (`simulate_path_stats(corridor=True)`) and the
-    Pallas stats kernel (pallas_kernels.py:_svj_stats_kernel) — one
-    implementation, so the twin-pair algebra cannot drift.
+    Used by `simulate_path_stats(corridor=True)`.
     """
     a = x_old - log_lo
     b = x_new - log_lo

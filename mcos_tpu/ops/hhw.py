@@ -10,7 +10,7 @@ contributes materially to the terminal spot variance:
 
 with a full 3x3 correlation (rho_sv, rho_sr, rho_vr; Cholesky-mixed).
 
-TPU design: one `lax.scan` over steps carrying (log S, v, r, \int r dt).
+Design: one `lax.scan` over steps carrying (log S, v, r, \int r dt).
 The rate factor steps with the EXACT Ornstein-Uhlenbeck transition (its
 conditional law is Gaussian in closed form — no Euler bias in r), the
 money-market integral accumulates trapezoidally, and pricing discounts

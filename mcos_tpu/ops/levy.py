@@ -10,7 +10,7 @@ on a gamma clock,
 an infinite-activity process whose small jumps generate steep short-dated
 smiles without any diffusion component at all.
 
-TPU design: the terminal law is sampled EXACTLY in two primitives
+Design: the terminal law is sampled EXACTLY in two primitives
 (`jax.random.gamma` + one normal) — no path loop, no discretization bias
 of any kind; pricing is one elementwise expression over the path batch.
 The COS machinery (ops/cos_pricer.py) prices the same model

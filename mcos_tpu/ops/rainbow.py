@@ -8,7 +8,7 @@ exactly — the control's expectation is known, the estimator stays unbiased.
 
 Precision note: small host-side bivariate-normal CDF evaluations; keeping
 this off-device f64 follows the repo's rule for precision-critical small
-work (TPU f64 is emulated and slow to compile).
+work.
 
 Capability beyond the reference (single-asset only, SURVEY.md §2 C1-C15).
 

@@ -12,7 +12,7 @@ W~_t = sqrt(2H) \int_0^t (t-u)^{H-1/2} dW_u with Hurst H in (0, 1/2].
 Small H produces the steep short-dated skew and the t^{H-1/2} ATM-skew
 explosion that Markovian models cannot match.
 
-TPU-first design — NO sequential step loop at all:
+Device-first design — NO sequential step loop at all:
 
   * W~ is non-Markovian, so instead of a scan we sample the *exact* joint
     Gaussian of (W~ at the grid times, the dW increments): the covariance

@@ -31,7 +31,7 @@ Two independent routes to the same law, per the repo's oracle doctrine:
    off the CF itself by small-u finite differences (no closed-form
    cumulants exist for the rough model).
 
-2. **Lifted (multi-factor Markovian) MC on TPU** — Abi Jaber's lifted
+2. **Lifted (multi-factor Markovian) MC on device** — Abi Jaber's lifted
    Heston: approximate the power kernel by a sum of exponentials,
    K(t) ~= sum_i c_i exp(-x_i t), with (c_i, x_i) moment-matched against
    the inverse-Laplace measure mu(dx) = x^(-alpha)/(Gamma(alpha)
@@ -42,7 +42,7 @@ Two independent routes to the same law, per the repo's oracle doctrine:
        V_i <- (V_i + dt*lam*(theta - v) + nu*sqrt(v)*dB)/(1 + x_i dt),
 
    one explicit-semi-implicit Euler step (the 1/(1+x dt) damping keeps
-   the stiff high-frequency factors stable at x_max*dt >> 1). On TPU the
+   the stiff high-frequency factors stable at x_max*dt >> 1). On device the
    whole factor block is a (n_factors, branch, paths) elementwise update
    inside ONE `lax.scan` — no per-factor loop, no materialized history —
    and the scan is differentiable, so delta / dP/dv0 / vega come out of
@@ -332,8 +332,8 @@ def lifted_terminal(
 
     `remat_chunk` (callers that differentiate MUST set it): plain scan
     backward stores the (n_factors, branch, paths) carry per step —
-    2048 steps x 200k paths x 24 factors = 78 GB of residuals, an
-    instant HBM OOM (measured on v5e). With remat_chunk = m the scan
+    2048 steps x 200k paths x 24 factors = 78 GB of residuals, more than
+    one device holds. With remat_chunk = m the scan
     nests into (num_steps/m) checkpointed chunks of m steps: backward
     keeps only the chunk-boundary carries and recomputes inside each
     chunk, so peak residual memory drops to (num_steps/m + m) carries

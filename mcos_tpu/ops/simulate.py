@@ -1,6 +1,6 @@
 """SVJ / GBM path simulation as differentiable `lax.scan` programs.
 
-TPU-native re-design of the reference's Numba kernel
+Re-design of the reference's Numba kernel
 (reference: engine/monte_carlo.py:189-243, `_simulate_svj_paths_numba`).
 
 Design decisions (vs the reference):
@@ -26,8 +26,9 @@ Everything is differentiable wrt (spot, T, r, q, κ, θ, ξ, ρ, v0, μ_J, σ_J)
 the jump *indicator* 1{U < λ·dt} has zero derivative wrt λ (see
 engine/greeks.py for score-function treatment of λ sensitivities).
 
-The Pallas fused kernel in `mcos_tpu.ops.pallas_kernels` implements the same
-recursion for the non-differentiated hot path; tests pin the two to each other.
+The GPU kernel in `mcos_tpu.ops.draws_kernel` implements the from-draws
+recursion for the non-differentiated hot path; tests pin the two to each other
+and `mcos_tpu.ops.backend.simulator_for` chooses between them.
 """
 
 from __future__ import annotations
@@ -233,11 +234,10 @@ def simulate_terminal_members(
     axis; every member rides the SAME per-step draws (the common-random-
     numbers contract the FD Greeks need), antithetic pairs included.
 
-    This deliberately avoids `vmap(scan-with-in-kernel-RNG))` — the TPU
-    compiler handles a vmapped threefry scan pathologically (minutes of
-    compile at toy shapes, measured on the serving chip); a single scan
-    whose carries are (M, 2, paths) arrays with params broadcast as
-    (M, 1, 1) compiles in seconds and is the same math. Key folding is
+    This deliberately avoids `vmap(scan-with-in-kernel-RNG))`, whose
+    batched threefry inside the loop body is costly to compile; a single
+    scan whose carries are (M, 2, paths) arrays with params broadcast as
+    (M, 1, 1) is the same math. Key folding is
     identical to `simulate_terminal` (fold_in(key, step) → split →
     z(3,·), u), so member results are CRN-consistent with the single-run
     simulators.
@@ -339,6 +339,37 @@ def simulate_terminal_from_draws(
         step, (log_s0, v0, log_s0), (z1, z2, u_jump, z_js))
     return (spot * jnp.exp(log_s), v,
             (spot * jnp.exp(log_g) if companion else None))
+
+
+@partial(jax.jit, static_argnames=("antithetic", "companion"))
+def simulate_terminal_from_draws_pair(
+    params: SVJParams,
+    spot,
+    T,
+    z1: Array,
+    z2: Array,
+    u_jump: Array,
+    z_js: Array,
+    *,
+    antithetic: bool = True,
+    companion: bool = False,
+) -> Tuple[Array, Array, Optional[Array]]:
+    """Both antithetic branches of `simulate_terminal_from_draws`.
+
+    Draws are steps-major (num_steps, num_paths). The antithetic branch
+    negates (z1, z2, z_js) and shares u_jump (monte_carlo.py:318-324).
+    Returns (S, v, G or None), each (n_branch, num_paths) — the signature
+    of the kernel twin in `ops/draws_kernel.py`.
+    """
+    branches = [(z1, z2, z_js)]
+    if antithetic:
+        branches.append((-z1, -z2, -z_js))
+    outs = [simulate_terminal_from_draws(params, spot, T, a, b, u_jump, c,
+                                         companion=companion, steps_major=True)
+            for a, b, c in branches]
+    s, v, g = (jnp.stack(x) if x[0] is not None else None
+               for x in zip(*outs))
+    return s, v, g
 
 
 @partial(jax.jit, static_argnames=("num_paths", "num_steps"))

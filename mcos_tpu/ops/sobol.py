@@ -1,6 +1,6 @@
-"""Scrambled Sobol QMC + Brownian-bridge construction, TPU-resident.
+"""Scrambled Sobol QMC + Brownian-bridge construction, device-resident.
 
-TPU-native re-design of the reference's QMC pipeline
+Re-design of the reference's QMC pipeline
 (reference: engine/monte_carlo.py:61-183).
 
 Differences from the reference — all deliberate:
@@ -9,14 +9,14 @@ Differences from the reference — all deliberate:
   uniforms on the host with scipy (monte_carlo.py:78-79). Here only the Sobol
   *direction numbers* (dims × 30 uint32, a few KB) come from scipy's tables;
   the gray-code XOR expansion, digital-shift scrambling, uniform conversion and
-  inverse-CDF all run inside one jit on the TPU.
+  inverse-CDF all run inside one jit on the device.
 - **Hash-based Owen scrambling** (Burley, JCGT 2020: bit-reverse →
   Laine-Karras multiply-xor permutation → bit-reverse) replaces scipy's
   sequential Owen tree walk: statistically equivalent nested-uniform
-  scrambling, O(1) per point, fully vectorized on the VPU. A cheaper
+  scrambling, O(1) per point, fully vectorized. A cheaper
   digital-shift mode (scramble="shift") is kept for studies.
 - **The Brownian bridge is a precomputed matrix**, so path construction is a
-  single (paths × steps) @ (steps × steps) matmul on the MXU instead of the
+  single (paths × steps) @ (steps × steps) matmul instead of the
   reference's per-dimension Python loop (monte_carlo.py:115-145).
 - **Bug fixed:** the reference's endpoint search (`_find_bridge_endpoints`,
   monte_carlo.py:172-183) initializes the right bracket at the terminal index
@@ -114,12 +114,60 @@ def brownian_bridge_matrix(num_steps: int) -> np.ndarray:
     return np.ascontiguousarray(m, dtype=np.float32)
 
 
+def _bridge(bb: Array, z: Array) -> Array:
+    """Bridge product bb @ z at full f32 precision.
+
+    A float32 matmul may otherwise run in TF32 (about three decimal digits)
+    on a GPU, which would break the bridge's exactness (M·Mᵀ = dt·I).
+    """
+    return jnp.matmul(bb, z, precision=jax.lax.Precision.HIGHEST)
+
+
+# Acklam's rational approximation of the inverse normal CDF (relative error
+# < 1.2e-9 — far below f32 resolution). Horner-form polynomials over a
+# branchless central/tail select: 1 log + 1 sqrt + 2 rational evals per draw.
+_ACK_A = (-3.969683028665376e+01, 2.209460984245205e+02,
+          -2.759285104469687e+02, 1.383577518672690e+02,
+          -3.066479806614716e+01, 2.506628277459239e+00)
+_ACK_B = (-5.447609879822406e+01, 1.615858368580409e+02,
+          -1.556989798598866e+02, 6.680131188771972e+01,
+          -1.328068155288572e+01)
+_ACK_C = (-7.784894002430293e-03, -3.223964580411365e-01,
+          -2.400758277161838e+00, -2.549732539343734e+00,
+          4.374664141464968e+00, 2.938163982698783e+00)
+_ACK_D = (7.784695709041462e-03, 3.224671290700398e-01,
+          2.445134137142996e+00, 3.754408661907416e+00)
+_ACK_PLOW = 0.02425
+
+
+def _horner(x: Array, coeffs) -> Array:
+    acc = jnp.float32(coeffs[0])
+    for c in coeffs[1:]:
+        acc = acc * x + jnp.float32(c)
+    return acc
+
+
+def ndtri_acklam(u: Array) -> Array:
+    """Inverse normal CDF for u strictly inside (0, 1) (see _ACK_* above)."""
+    # Central region |u - 0.5| ≤ 0.5 - plow.
+    qc = u - 0.5
+    r = qc * qc
+    x_central = _horner(r, _ACK_A) * qc / (_horner(r, _ACK_B) * r + 1.0)
+    # Tails, symmetric via pm = min(u, 1-u); magnitude is the lower-tail value.
+    pm = jnp.minimum(u, 1.0 - u)
+    qt = jnp.sqrt(-2.0 * jnp.log(pm))
+    x_tail = _horner(qt, _ACK_C) / (_horner(qt, _ACK_D) * qt + 1.0)
+    x_tail = jnp.where(qc < 0.0, x_tail, -x_tail)
+    central = jnp.abs(qc) <= jnp.float32(0.5 - _ACK_PLOW)
+    return jnp.where(central, x_central, x_tail)
+
+
 # ─────────────────────────────────────────────────────────────────────────────
 # Device-side point generation (dims-major: the natural layout for both the
 # BB matmul and the step-streaming consumers)
 # ─────────────────────────────────────────────────────────────────────────────
 def _reverse_bits32(x: Array) -> Array:
-    """Bit-reverse each uint32 lane (5 masked swap rounds, all VPU ops)."""
+    """Bit-reverse each uint32 lane (5 masked swap rounds)."""
     x = ((x >> 1) & jnp.uint32(0x55555555)) | ((x & jnp.uint32(0x55555555)) << 1)
     x = ((x >> 2) & jnp.uint32(0x33333333)) | ((x & jnp.uint32(0x33333333)) << 2)
     x = ((x >> 4) & jnp.uint32(0x0F0F0F0F)) | ((x & jnp.uint32(0x0F0F0F0F)) << 4)
@@ -156,8 +204,8 @@ def _sobol_uniforms_core(sv: Array, shift: Array, idx: Array, n_bits: int,
 
     Statically unrolled over `n_bits` gray-code bits: the whole chain fuses
     into ONE elementwise pass (a fori_loop body round-trips the
-    (dims × points) accumulator through HBM every iteration — 30× the
-    traffic; measured ~5× slower end-to-end at 500k × 252 on v5e).
+    (dims × points) accumulator through device memory every iteration —
+    30× the traffic).
     """
     gray = idx ^ (idx >> 1)
     dims = sv.shape[0]
@@ -217,15 +265,12 @@ def _sobol_normals_T(sv: Array, shift: Array, num_points: int,
                      num_keep: int, scramble: str = "owen") -> Array:
     """(dims, num_keep) scrambled-Sobol normals — one fused device program.
 
-    The inverse CDF is the Acklam rational approximation (shared with the
-    Pallas QE kernel): |Δz| < 4e-4 in f32 — far below MC noise — at a
-    fraction of jax.scipy's ndtri cost (measured 2.5× end-to-end on the
-    draw pipeline at 500k × 252 on v5e).
+    The inverse CDF is the Acklam rational approximation (`ndtri_acklam`):
+    |Δz| < 4e-4 in f32 — far below MC noise — with one log, one sqrt and
+    two rational evaluations per draw.
     """
-    from mcos_tpu.ops.pallas_kernels import _ndtri_kernel
-
     u = _sobol_uniforms_T(sv, shift, num_points, scramble)
-    return _ndtri_kernel(jnp.clip(u, _CLIP, 1.0 - _CLIP))[:, :num_keep]
+    return ndtri_acklam(jnp.clip(u, _CLIP, 1.0 - _CLIP))[:, :num_keep]
 
 
 @partial(jax.jit, static_argnames=("num_points", "num_keep", "scramble"))
@@ -241,7 +286,7 @@ def _sobol_bb_normals_T(sv: Array, shift: Array, bb: Array, num_points: int,
     z = _sobol_normals_T(sv, shift, num_points, num_keep, scramble)
     num_steps = bb.shape[0]
     # dW (unit horizon) = bb @ Z; convert to per-step unit normals by √n.
-    return (bb @ z) * jnp.sqrt(jnp.float32(num_steps))
+    return _bridge(bb, z) * jnp.sqrt(jnp.float32(num_steps))
 
 
 def _scramble_shift(key: Array, dims: int) -> Array:
@@ -351,15 +396,13 @@ def sobol_svj_draws_slice(paths_slice: int, total_paths: int, offset,
     offset = jnp.asarray(offset, jnp.uint32)
     sqrt_n = jnp.sqrt(jnp.float32(s))
 
-    from mcos_tpu.ops.pallas_kernels import _ndtri_kernel
-
     def normals(block, shift_block):
         u = _sobol_uniforms_slice_T(block, shift_block, offset, paths_slice,
                                     total_paths, scramble)
-        return _ndtri_kernel(jnp.clip(u, _CLIP, 1.0 - _CLIP))
+        return ndtri_acklam(jnp.clip(u, _CLIP, 1.0 - _CLIP))
 
-    z1 = (bb @ normals(sv[:s], shift[:s])) * sqrt_n
-    z2 = (bb @ normals(sv[s:2 * s], shift[s:2 * s])) * sqrt_n
+    z1 = _bridge(bb, normals(sv[:s], shift[:s])) * sqrt_n
+    z2 = _bridge(bb, normals(sv[s:2 * s], shift[s:2 * s])) * sqrt_n
     z_js = normals(sv[2 * s:], shift[2 * s:])
     return z1, z2, None, z_js
 

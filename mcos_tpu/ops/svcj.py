@@ -8,9 +8,7 @@ stops at SVJ, reference engine/models.py:25-28):
    draws, antithetic pairing, and the GBM companion control-variate leg.
    The step recursion extends `_svj_step_core`'s full-truncation log-Euler
    scheme with the exponential variance jump Z_v = μ_v·E and the
-   correlated price-jump mean μ_j + ρ_J·Z_v. The Pallas twin is
-   `ops/pallas_kernels.py:svcj_terminal_pallas` — any dynamics change must
-   land in BOTH (tests pin them).
+   correlated price-jump mean μ_j + ρ_J·Z_v.
 
 2. `svcj_cf` / `svcj_cos_price` — the semi-analytic oracle. The SVCJ
    characteristic function is the Heston "little trap" CF times a jump

@@ -25,9 +25,6 @@ Two consistent implementations, cross-pinned in tests/test_tdsvj.py:
    `lax.scan` xs through `SVJParams.replace` — the step math is byte-for-byte
    `_svj_step_core`, so every dynamics invariant pinned on the constant-param
    simulator carries over.
-
-The Pallas fused twin lives in ops/pallas_kernels.py (`svj_terminal_td_pallas`)
-per the repo invariant that scan and Pallas implement the same recursion.
 """
 
 from __future__ import annotations

@@ -2,20 +2,20 @@
 
 The reference's only parallelism is shared-memory threading over MC paths
 (`prange(num_paths)`, engine/monte_carlo.py:221-222) — single process, no
-distributed backend (SURVEY.md §5.8). The TPU-native equivalent built here:
+distributed backend (SURVEY.md §5.8). The equivalent built here:
 
 - a `jax.sharding.Mesh` with a `"paths"` axis (optionally × `"batch"` for
   strike/contract data-parallelism),
 - `shard_map` runs the per-device path simulation with a device-folded
   threefry key (no cross-device random reuse),
-- the (count, Σpay, Σpay², ...) moment triple is reduced with `psum` over ICI,
+- the (count, Σpay, Σpay², ...) moment triple is reduced with `psum`,
   reproducing the single-chip price/stderr estimator bit-for-bit in
   expectation (monte_carlo.py:342-343 semantics),
 - antithetic pairs and CRN stay device-local, so no resharding precedes the
   reduction.
 
-Multi-slice scaling uses standard JAX multi-process initialization (the
-`"paths"` axis spans slices over DCN); nothing here changes.
+Multi-host scaling uses standard JAX multi-process initialization (the
+`"paths"` axis spans hosts); nothing here changes.
 
 This module holds the INFRASTRUCTURE (`make_mesh`, `sharded_moments` /
 `pool_moments` — the one moment-pooling combinator) plus the programs
@@ -37,6 +37,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from mcos_tpu.models.params import SVJParams
 from mcos_tpu.ops import simulate
+from mcos_tpu.ops.backend import SVJ_EULER_DRAWS, simulator_for
 from mcos_tpu.ops.bs import bs_price
 
 Array = jax.Array
@@ -113,7 +114,7 @@ def _local_price_stats(params, spot, strikes, T, key, *,
 # THE sharding combinator. Every moment-pooled driver in this module is the
 # same shape — per-device payoffs on a device-folded key, psum'd moment
 # sums, replicated pooling — so that shape lives HERE exactly once and a
-# family driver supplies only its payoff function (VERDICT r4 item 5: one
+# family driver supplies only its payoff function (one
 # combinator, not the 19th hand-written wrapper). The reference has nothing
 # on this axis (its one parallelism is prange threads, SURVEY.md §5.8).
 # ─────────────────────────────────────────────────────────────────────────────
@@ -174,7 +175,7 @@ def sharded_moments(payoff_fn, key, args, *, mesh, statics=(),
     (payoff_fn, statics, mesh) — the DE-objective discipline (CLAUDE.md),
     or every call would re-trace. `args` are traced pytrees, replicated
     into the shard_map (per-path data never crosses hosts; only the
-    O(strikes) moment sums ride ICI).
+    O(strikes) moment sums ride the interconnect).
     """
     return _sharded_moments_fn(payoff_fn, tuple(statics), mesh,
                                len(args), axis_name)(key, *args)
@@ -637,13 +638,9 @@ def _sharded_sobol_fn(mesh, ppd, n_global, num_steps, seed, is_call,
         u_jump = jax.random.uniform(
             jax.random.fold_in(jax.random.key(seed + 1), idx),
             (num_steps, ppd), jnp.float32)
-        s_base, v_base, g_base = simulate.simulate_terminal_from_draws(
-            params_, spot_, T_, z1, z2, u_jump, z_js, companion=want_g,
-            steps_major=True)
-        s_anti, v_anti, g_anti = simulate.simulate_terminal_from_draws(
-            params_, spot_, T_, -z1, -z2, u_jump, -z_js, companion=want_g,
-            steps_major=True)
-        s_final = jnp.stack([s_base, s_anti])
+        s_final, v_final, g_final = simulator_for(SVJ_EULER_DRAWS)(
+            params_, spot_, T_, z1, z2, u_jump, z_js, antithetic=True,
+            companion=want_g)
         pay = simulate.combine_antithetic(
             simulate.vanilla_payoff(
                 s_final[None], ks_[:, None, None], is_call).swapaxes(0, 1))
@@ -653,7 +650,7 @@ def _sharded_sobol_fn(mesh, ppd, n_global, num_steps, seed, is_call,
                               jnp.sqrt(params_.v0), is_call)
             ctrl = simulate.combine_antithetic(
                 simulate.vanilla_payoff(
-                    jnp.stack([g_base, g_anti])[None], ks_[:, None, None],
+                    g_final[None], ks_[:, None, None],
                     is_call).swapaxes(0, 1))
             eff = pay - (ctrl - bs_ref[:, None] / discount)
         else:
@@ -667,8 +664,7 @@ def _sharded_sobol_fn(mesh, ppd, n_global, num_steps, seed, is_call,
         # pmax, not psum: see _local_price_stats. These diagnostics feed the
         # post-price guards (nonfinite_paths is a FAIL rule) — the sharded
         # route must not silently disable them.
-        sums["v_max"] = jax.lax.pmax(
-            jnp.maximum(jnp.max(v_base), jnp.max(v_anti)), axis_name)
+        sums["v_max"] = jax.lax.pmax(jnp.max(v_final), axis_name)
         return sums
 
     spec = P()
@@ -739,7 +735,7 @@ def sharded_american_price(
     Exercise decisions and cashflows stay device-local; the final
     (n, Σcf, Σcf²) pools like every other driver. The one cross-device
     coupling an American option genuinely needs — the regression — rides
-    ICI at O(basis²) bytes per date, independent of the path count.
+    the interconnect at O(basis²) bytes per date, independent of path count.
     """
     n_dev = mesh.shape[axis_name]
     ppd = -(-num_paths // n_dev)
@@ -767,7 +763,7 @@ def sharded_american_price(
 
 
 # ─────────────────────────────────────────────────────────────────────────────
-# Sharded MLMC (VERDICT r3 §4: levels and paths are embarrassingly parallel)
+# Sharded MLMC (levels and paths are embarrassingly parallel)
 # ─────────────────────────────────────────────────────────────────────────────
 @lru_cache(maxsize=64)
 def _sharded_mlmc_level_fn(mesh, ppd, level, base_steps, is_call, axis_name):
@@ -846,7 +842,7 @@ def sharded_mlmc_price(
 
 
 # ─────────────────────────────────────────────────────────────────────────────
-# Sharded XVA exposure profile (VERDICT r3 §4: THE 1e6-path × long-horizon
+# Sharded XVA exposure profile (THE 1e6-path × long-horizon
 # workload multi-chip exists for)
 # ─────────────────────────────────────────────────────────────────────────────
 @lru_cache(maxsize=64)
@@ -950,7 +946,7 @@ def sharded_exposure_profile(
 
 
 # ─────────────────────────────────────────────────────────────────────────────
-# Sharded basket-American duality bracket (VERDICT r3 §4: the dual's nested
+# Sharded basket-American duality bracket (the dual's nested
 # inner simulations are the n_outer × n_inner × n_ex × sub-steps workload)
 # ─────────────────────────────────────────────────────────────────────────────
 @lru_cache(maxsize=64)
@@ -1077,7 +1073,7 @@ def sharded_basket_bounds(
 
 
 # ─────────────────────────────────────────────────────────────────────────────
-# Sharded ADI PDE chain (VERDICT r3 §4 tail item: the ADI batch axis was the
+# Sharded ADI PDE chain (the ADI batch axis was the
 # one engine surface still single-device)
 # ─────────────────────────────────────────────────────────────────────────────
 @lru_cache(maxsize=32)

@@ -3,10 +3,10 @@
 The reference has no persistence at all — calibration history and regime
 history live in in-memory lists (engine/calibration.py:145,244-251;
 engine/regime.py:37,92) and die with the process; its only "cache" is Numba's
-on-disk JIT cache (SURVEY.md §5.4). The TPU framework provides:
+on-disk JIT cache (SURVEY.md §5.4). This framework provides:
 
-- `save_calibration` / `load_calibration`: durable SVJParams + history via
-  orbax (pytree checkpointing) with a JSON sidecar for human inspection.
+- `save_calibration` / `load_calibration`: durable SVJParams (`params.npz`)
+  + history and metadata in a JSON sidecar for human inspection.
 - `enable_compilation_cache`: JAX persistent compilation cache, the analogue
   of `cache=True` on the reference's Numba kernel (monte_carlo.py:189) —
   first-compile latency paid once per machine, not per process.
@@ -22,24 +22,35 @@ import numpy as np
 
 from mcos_tpu.models.params import SVJParams
 
+#: Cache directory used when JAX_COMPILATION_CACHE_DIR is not set: fixed and
+#: inside the checkout, because the path is part of the cache key.
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), ".jax_cache")
 
-def enable_compilation_cache(path: str = "/tmp/mcos_tpu_jit_cache") -> None:
+
+def enable_compilation_cache() -> Optional[str]:
     """Persistent XLA compilation cache (Numba cache=True analogue).
 
-    MCOS_DISABLE_JIT_CACHE=1 is the operator escape hatch: the cache's
-    native executable serializer has been observed to segfault on some
-    large CPU executables (jax compilation_cache.py:238/265 — the reason
-    tests/conftest.py hard-disables the cache for the suite), so a CPU
-    deployment that trips it can turn persistence off without a code
-    change. TPU serving has run clean with the cache all round.
+    If JAX_COMPILATION_CACHE_DIR is set, JAX already caches there and no
+    other directory is set; otherwise the cache goes to DEFAULT_CACHE_DIR.
+    Returns the directory, or None when MCOS_DISABLE_JIT_CACHE=1 — the
+    operator escape hatch: the cache's native executable serializer has
+    been observed to segfault on some large CPU executables (jax
+    compilation_cache.py:238/265, the reason tests/conftest.py disables
+    the cache for the suite).
     """
     import jax
 
     if os.environ.get("MCOS_DISABLE_JIT_CACHE") == "1":
-        return
-    os.makedirs(path, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", path)
+        return None
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not path:
+        path = DEFAULT_CACHE_DIR
+        os.makedirs(path, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    return path
 
 
 def save_calibration(directory: str, params: SVJParams,
@@ -47,20 +58,14 @@ def save_calibration(directory: str, params: SVJParams,
                      metadata: Optional[Dict] = None) -> str:
     """Persist calibrated params (+ history) to `directory`.
 
-    Uses orbax for the params pytree and a JSON sidecar for history/metadata.
+    The params go to `params.npz`, history and metadata to the JSON
+    sidecar `calibration.json` (which also lists the params for reading).
     Returns the directory path.
     """
-    import orbax.checkpoint as ocp
-
     directory = os.path.abspath(directory)
     os.makedirs(directory, exist_ok=True)
-
-    ckptr = ocp.StandardCheckpointer()
-    tree = {k: np.float32(v) for k, v in params.as_dict().items()}
-    ckpt_path = os.path.join(directory, "params")
-    ckptr.save(ckpt_path, tree, force=True)
-    ckptr.wait_until_finished()
-
+    values = {k: np.float64(v) for k, v in params.as_dict().items()}
+    np.savez(os.path.join(directory, "params.npz"), **values)
     sidecar = {
         "params": params.as_dict(),
         "history": history or [],
@@ -74,7 +79,8 @@ def save_calibration(directory: str, params: SVJParams,
 def load_calibration(directory: str) -> Tuple[SVJParams, List[Dict], Dict]:
     """Restore (params, history, metadata) saved by `save_calibration`."""
     directory = os.path.abspath(directory)
+    with np.load(os.path.join(directory, "params.npz")) as z:
+        params = SVJParams(**{k: float(z[k]) for k in z.files})
     with open(os.path.join(directory, "calibration.json")) as f:
         sidecar = json.load(f)
-    params = SVJParams(**{k: float(v) for k, v in sidecar["params"].items()})
     return params, sidecar.get("history", []), sidecar.get("metadata", {})

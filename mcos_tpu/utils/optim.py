@@ -1,10 +1,10 @@
 """JAX-native optimizers for calibration: vmapped differential evolution + box
 reparameterization helpers for gradient polish.
 
-TPU-native replacement for the reference's `scipy.optimize.differential_evolution`
+Replacement for the reference's `scipy.optimize.differential_evolution`
 with `workers=1` (engine/calibration.py:195-227, engine/surface.py:204-238):
 here the whole DE population is evaluated in ONE batched objective call
-(vmap over members — on TPU that is one big fused MC batch instead of a
+(vmap over members — on device that is one big fused MC batch instead of a
 Python loop over members × strikes), and generations advance under `lax.scan`.
 """
 

@@ -3,7 +3,7 @@
 // Role: the market-data ingestion runtime. Calibration consumes option
 // chains (strike, expiry, type, bid/ask, open interest); production chains
 // for a full index complex run to millions of rows per day, and Python CSV
-// parsing becomes the bottleneck long before the TPU does. This loader
+// parsing becomes the bottleneck long before the device does. This loader
 // parses NSE-style chain CSVs at memory bandwidth and applies the liquidity
 // screen (min open interest, max relative bid-ask spread — the reference's
 // CalibrationConfig contract, engine/config.py:106-129) in the same pass.

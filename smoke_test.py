@@ -1,7 +1,7 @@
 """Sequential smoke test of the full engine stack (role of the reference's
-verify.py:1-97, extended to the TPU-only capabilities).
+verify.py:1-97, extended to the capabilities it lacks).
 
-Run: python smoke_test.py          (uses the default backend — TPU if attached)
+Run: python smoke_test.py          (uses the default backend — GPU if attached)
      JAX_PLATFORMS=cpu python smoke_test.py
 Exit code 0 iff every stage passes.
 """

@@ -473,13 +473,11 @@ def test_exposure_endpoint():
 
 
 def test_serverless_entry_importable():
-    """The managed-platform entry must import cleanly, pin the jit cache to
-    a writable path, and expose the stdlib fallback."""
+    """The managed-platform entry imports cleanly and exposes the stdlib
+    transport."""
     import mcos_tpu.api.serverless as sl
 
     assert callable(sl.serve_wsgi)
-    # fastapi absent in this image → app is None (ASGI path documented).
-    assert sl.app is None or hasattr(sl.app, "router")
 
 
 def test_metrics_endpoint_counts_requests():
@@ -499,7 +497,7 @@ def test_metrics_endpoint_counts_requests():
 
 def test_security_and_cache_headers(base_url):
     """The reference ships these via vercel.json:3-41; the stdlib server
-    must set them itself (VERDICT r3 hardening item)."""
+    must set them itself."""
     req = urllib.request.Request(f"{base_url}/api/health")
     with urllib.request.urlopen(req, timeout=60) as resp:
         h = resp.headers

@@ -1,6 +1,6 @@
 """Calibration engine: vega weights, objectives, DE recovery, two-stage flow.
 
-Full market-quality calibration runs are TPU-scale work; these tests shrink
+Full market-quality calibration runs are accelerator-scale work; these tests shrink
 paths/iterations and check (a) machinery correctness and (b) that the fit
 actually reduces the pricing error on a synthetic chain.
 """

@@ -61,7 +61,7 @@ def test_grid_vectors_consistency():
 def _mc(curve=None, r=0.06):
     return MonteCarloEngine(gbm_params(SIGMA, r=r, q=0.0), num_paths=50_000,
                             num_steps=64, seed=7, use_sobol=False,
-                            backend="scan", rate_curve=curve)
+                            rate_curve=curve)
 
 
 def test_european_curve_bit_identical_to_r_eff():
@@ -84,7 +84,7 @@ def test_curve_with_cash_dividends_uses_curve_pv():
     cash = DividendSchedule([0.3, 0.6], [2.0, 1.5], "cash")
     eng = MonteCarloEngine(gbm_params(SIGMA, r=0.06, q=0.0),
                            num_paths=20_000, num_steps=32, seed=7,
-                           use_sobol=False, backend="scan",
+                           use_sobol=False,
                            dividends=cash, rate_curve=STEEP)
     pv = 2.0 * STEEP.discount(0.3) + 1.5 * STEEP.discount(0.6)
     assert eng._spot_eff(S, T) == pytest.approx(S - pv, rel=1e-12)
@@ -119,7 +119,7 @@ def test_viz_samples_honor_curve():
     (martingale) under the curve — regression for sampling at raw r."""
     eng = MonteCarloEngine(gbm_params(SIGMA, r=0.06, q=0.0),
                            num_paths=50_000, num_steps=64, seed=7,
-                           use_sobol=False, backend="scan",
+                           use_sobol=False,
                            rate_curve=STEEP)
     terms = np.asarray(eng.terminal_samples(S, T, num_samples=200_000),
                        np.float64)

@@ -80,3 +80,18 @@ def test_two_process_price_matches_single_process():
     # cross-process reduction order can differ (f32 noise)
     np.testing.assert_allclose(outs[0]["price"],
                                np.asarray(ref["price"]), rtol=1e-5)
+
+
+def test_initialize_passes_one_card_per_process(monkeypatch):
+    """`local_device_ids` reaches jax.distributed.initialize, so a process
+    per GPU opens only its own card."""
+    from mcos_tpu.parallel import distributed
+
+    seen = {}
+    monkeypatch.setattr(jax.distributed, "initialize",
+                        lambda **kw: seen.update(kw))
+    monkeypatch.setattr(distributed.logger, "info", lambda *a, **k: None)
+    distributed.initialize("localhost:1234", 4, 2, local_device_ids=[2])
+    assert seen == {"coordinator_address": "localhost:1234",
+                    "num_processes": 4, "process_id": 2,
+                    "local_device_ids": [2]}

@@ -85,7 +85,7 @@ def test_effective_spot_escrow_overflow():
 def _engine(divs=None, **kw):
     return MonteCarloEngine(gbm_params(SIGMA, r=R, q=0.0), num_paths=50_000,
                             num_steps=64, seed=7, use_sobol=False,
-                            backend="scan", dividends=divs, **kw)
+                            dividends=divs, **kw)
 
 
 def test_european_proportional_bit_identical_to_adjusted_spot():

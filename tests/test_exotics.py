@@ -120,7 +120,7 @@ def test_asian_greeks_ad_vs_fd():
     """Pathwise AD delta for the arithmetic Asian agrees with a CRN central
     difference (same engine seed ⇒ shared paths)."""
     eng = ExoticEngine(gbm_params(0.2, r=0.05, q=0.01), num_paths=50_000,
-                       num_steps=64, seed=3, backend="scan")
+                       num_steps=64, seed=3)
     g = eng.greeks(100.0, 100.0, 0.5, kind="asian")
     assert g["method"] == "pathwise_ad"
     h = 1.0
@@ -135,7 +135,7 @@ def test_asian_greeks_ad_vs_fd():
 
 def test_lookback_greeks_signs():
     eng = ExoticEngine(gbm_params(0.25, r=0.05, q=0.0), num_paths=30_000,
-                       num_steps=64, seed=5, backend="scan")
+                       num_steps=64, seed=5)
     g = eng.greeks(100.0, 0.0, 0.5, kind="lookback", floating=True)
     # Floating-strike lookbacks are homogeneous degree 1 in spot, so the
     # pathwise delta must equal price/spot exactly — a three-way pin of the
@@ -146,7 +146,7 @@ def test_lookback_greeks_signs():
 
 def test_barrier_greeks_fd():
     eng = ExoticEngine(gbm_params(0.2, r=0.05, q=0.01), num_paths=60_000,
-                       num_steps=64, seed=7, backend="scan")
+                       num_steps=64, seed=7)
     g = eng.greeks(100.0, 100.0, 0.5, kind="barrier", barrier=130.0,
                    knock="out")
     assert g["method"] == "crn_fd_homogeneity"
@@ -186,7 +186,7 @@ def test_digital_matches_bs_closed_form():
 
     S, K, T, r, q, sig = 100.0, 102.0, 0.25, 0.05, 0.01, 0.2
     eng = ExoticEngine(gbm_params(sig, r=r, q=q), num_paths=200_000,
-                       num_steps=64, seed=11, backend="scan")
+                       num_steps=64, seed=11)
     out = eng.price_digital(S, K, T, is_call=True)
     st = sig * np.sqrt(T)
     d2 = (np.log(S / K) + (r - q - sig**2 / 2) * T) / st

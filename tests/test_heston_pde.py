@@ -425,7 +425,7 @@ def test_pide_sigma_j_zero_rejected():
                     "params": {"lambda_j": 1.0, "sigma_j": 0.0}})
     assert ei.value.status == 400
     # Negative sigma_j is rejected at the schema layer for every route.
-    from pydantic import ValidationError
+    from mcos_tpu.api.validation import ValidationError
 
     from mcos_tpu.api import schemas
     with pytest.raises(ValidationError):

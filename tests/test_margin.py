@@ -72,10 +72,10 @@ def test_scan_identity_matches_direct_repricing():
 
     up = _vol_shift(gbm, 0.04)
     mc = MonteCarloEngine(up, num_paths=200_000, num_steps=64, seed=5,
-                          use_sobol=False, backend="scan")
+                          use_sobol=False)
     v_up = mc.price(S * 1.06, 100.0, 0.5)["price"]
     mc_b = MonteCarloEngine(gbm, num_paths=200_000, num_steps=64, seed=5,
-                            use_sobol=False, backend="scan")
+                            use_sobol=False)
     v_base = mc_b.price(S, 100.0, 0.5)["price"]
     direct_loss = v_up - v_base            # short call: loss when value rises
     assert out["margin"] == pytest.approx(direct_loss, rel=0.05)

@@ -1,10 +1,13 @@
-"""Pallas fused kernels vs the scan reference implementation.
+"""The GPU draws kernel (`ops/draws_kernel.py`) against its scan twin, and
+the one function that chooses between them (`ops/backend.py`).
 
-The Pallas TPU interpreter does not emulate the hardware PRNG (random bits
-come back zero), so statistical kernel tests only run on real TPU hardware —
-they are exercised by `bench.py`, the verify drive, and these tests when a
-TPU is attached. On CPU we keep compile/shape smoke tests via the interpreter.
+On the CPU the kernel runs in the Pallas interpreter (`interpret=True`),
+which executes the same per-tile program, masks included; the scan and the
+kernel then agree to the last bit. Tests marked `gpu` compile the kernel for
+the card and skip elsewhere; `python chip_smoke.py` runs them on a GPU.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -13,684 +16,188 @@ import pytest
 
 from mcos_tpu.models.params import SVJParams, gbm_params
 from mcos_tpu.ops import simulate
-from mcos_tpu.ops.pallas_kernels import gbm_terminal_pallas, svj_terminal_pallas
+from mcos_tpu.ops.backend import SVJ_EULER_DRAWS, simulator_for
+from mcos_tpu.ops.draws_kernel import svj_terminal_from_draws_kernel
 
-ON_TPU = jax.default_backend() == "tpu"
-tpu_only = pytest.mark.skipif(
-    not ON_TPU, reason="hardware PRNG not emulated by the Pallas interpreter")
-
-N = 8192  # one (8,128)-tile block ⇒ cheap even interpreted
-STEPS = 16
+P = SVJParams(kappa=3.0, theta=0.06, xi=0.4, rho=-0.6, v0=0.04,
+              lambda_j=1.5, mu_j=-0.05, sigma_j=0.1)
 
 
-def test_kernels_compile_and_shape():
-    """Interpreter smoke test: shapes, dtypes, finiteness (not statistics)."""
-    s = gbm_terminal_pallas(100.0, 0.2, 0.05, 0.01, 1.0, 11,
-                            num_paths=N, num_steps=STEPS, rows=8)
-    assert s.shape == (2, N) and s.dtype == jnp.float32
-    assert bool(jnp.all(jnp.isfinite(s))) and bool(jnp.all(s > 0))
-
-    p = SVJParams()
-    sv, vv, gv = svj_terminal_pallas(p, 100.0, 0.5, 3,
-                                     num_paths=N, num_steps=STEPS,
-                                     companion=True, rows=8)
-    for a in (sv, vv, gv):
-        assert a.shape == (2, N)
-        assert bool(jnp.all(jnp.isfinite(a)))
-    assert bool(jnp.all(vv >= 0.0))
+def _draws(steps, paths, seed=0):
+    rng = np.random.default_rng(seed)
+    z1, z2, zj = (rng.standard_normal((steps, paths)).astype(np.float32)
+                  for _ in range(3))
+    u = rng.uniform(size=(steps, paths)).astype(np.float32)
+    return z1, z2, u, zj
 
 
-@tpu_only
-def test_gbm_kernel_moments():
-    sigma, r, q, T = 0.25, 0.05, 0.01, 1.0
-    s = gbm_terminal_pallas(100.0, sigma, r, q, T, 11,
-                            num_paths=N, num_steps=STEPS, rows=8)
-    lr = np.log(np.asarray(s) / 100.0)
-    assert lr.mean() == pytest.approx((r - q - 0.5 * sigma**2) * T, abs=5e-3)
-    assert lr[0].std() == pytest.approx(sigma * np.sqrt(T), rel=0.05)
-
-
-@tpu_only
-def test_gbm_kernel_antithetic_symmetry():
-    """Branch 1 uses the negated normals of branch 0: log-returns mirror."""
-    sigma = 0.2
-    s = gbm_terminal_pallas(100.0, sigma, 0.0, 0.0, 1.0, 3,
-                            num_paths=N, num_steps=STEPS, rows=8)
-    lr = np.log(np.asarray(s) / 100.0) + 0.5 * sigma**2
-    # atol covers the TPU VPU's few-ulp exp/log approximation error; the
-    # pairing itself is exact (corr(lr0, lr1) = −1.0 to 1e-10).
-    np.testing.assert_allclose(lr[0], -lr[1], atol=3e-4)
-    assert np.corrcoef(lr[0], lr[1])[0, 1] < -0.999999
-
-
-@tpu_only
-def test_svj_kernel_matches_scan_statistics():
-    """Pallas and scan implement the same recursion: terminal moments agree."""
-    p = SVJParams(kappa=3.0, theta=0.06, xi=0.4, rho=-0.6, v0=0.04,
-                  lambda_j=1.5, mu_j=-0.05, sigma_j=0.1)
-    spot, T = 22500.0, 0.5
-    n = 1 << 18
-
-    s_pal, v_pal, g_pal = svj_terminal_pallas(
-        p, spot, T, 17, num_paths=n, num_steps=64, companion=True)
-    s_scan, v_scan, g_scan = simulate.simulate_terminal(
-        p, spot, T, jax.random.key(17), num_paths=n, num_steps=64,
-        companion=True)
-
-    se = float(jnp.std(s_scan)) / np.sqrt(n)
-    assert abs(float(s_pal.mean()) - float(s_scan.mean())) < 6 * se
-    assert abs(float(v_pal.mean()) - float(v_scan.mean())) < 0.005
-    g_se = float(jnp.std(g_scan)) / np.sqrt(n)
-    assert abs(float(g_pal.mean()) - float(g_scan.mean())) < 6 * g_se
-    assert bool(jnp.all(v_pal >= 0.0))
-
-
-@tpu_only
-def test_pricer_pallas_backend_bs_oracle():
-    from mcos_tpu.engine.pricer import MonteCarloEngine
-    from mcos_tpu.ops.bs import bs_price
-
-    p = gbm_params(0.2, r=0.065, q=0.012)
-    eng = MonteCarloEngine(p, num_paths=65536, num_steps=160, use_sobol=False,
-                           backend="pallas")
-    res = eng.price(22500.0, 22500.0, 0.1)
-    ref = float(bs_price(22500.0, 22500.0, 0.1, 0.065, 0.012, 0.2, True))
-    assert abs(res["price"] - ref) < max(4 * res["std_error"], 2.0)
-
-
-def test_stats_kernel_compiles_and_shapes():
-    """Interpreter smoke for the fused path-stats kernel."""
-    from mcos_tpu.ops.pallas_kernels import svj_path_stats_pallas
-
-    stats = svj_path_stats_pallas(SVJParams(), 100.0, 0.5, 3,
-                                  num_paths=N, num_steps=STEPS,
-                                  companion=True, rows=8)
-    assert set(stats) >= {"s_final", "avg", "log_avg", "max_s", "min_s",
-                          "g_final", "g_avg"}
-    for v in stats.values():
-        assert v.shape == (2, N)
-
-
-@tpu_only
-def test_stats_kernel_matches_scan_tracker():
-    """Fused kernel and the differentiable scan tracker agree statistically
-    and respect the pathwise orderings."""
-    from mcos_tpu.ops.exotics import simulate_path_stats
-    from mcos_tpu.ops.pallas_kernels import svj_path_stats_pallas
-
-    p = SVJParams(kappa=3.0, theta=0.06, xi=0.4, rho=-0.6, v0=0.04,
-                  lambda_j=1.5, mu_j=-0.05, sigma_j=0.1)
-    n = 1 << 17
-    pal = svj_path_stats_pallas(p, 100.0, 0.5, 5, num_paths=n, num_steps=64)
-    scan = simulate_path_stats(p, 100.0, 0.5, jax.random.key(5),
-                               num_paths=n, num_steps=64)
-    for key in ("s_final", "avg", "max_s", "min_s", "g_final", "g_avg"):
-        se = float(np.asarray(scan[key]).std()) / np.sqrt(n)
-        gap = abs(float(pal[key].mean()) - float(np.asarray(scan[key]).mean()))
-        assert gap < 6 * se + 1e-3, key
-    # Pathwise orderings hold inside the kernel too.
-    assert bool(jnp.all(pal["max_s"] >= pal["s_final"]))
-    assert bool(jnp.all(pal["min_s"] <= pal["s_final"]))
-    assert bool(jnp.all(pal["max_s"] >= pal["avg"]))
-
-
-def test_binom_count_cdf_matches_scipy_and_inverts():
-    """Round-5 jump-count table: the trace-side f32 Binomial CDF matches
-    scipy to uniform-grid resolution (2⁻²³ ≈ 1.2e-7 — the resolution the
-    kernels sample u on anyway), and the in-kernel inverse transport
-    Σ 1{u > cdf_k} reproduces the Binomial pmf on a dense uniform grid.
-    This is the exactness argument for replacing the per-step Bernoulli
-    accumulation with ONE end-of-path draw (see _binom_count_cdf)."""
-    from scipy.stats import binom
-
-    from mcos_tpu.ops.pallas_kernels import _binom_count_cdf
-
-    # 1e-6 window: all-multiplicative f32 + tail normalization (no
-    # device transcendentals — TPU exp/log once cost 3.9e-5 here, and
-    # unnormalized binary exponentiation 2.2e-5 from the 1−p formation;
-    # the last-entry normalization cancels both as common factors).
-    for n, lam_dt in [(1024, 1e-3), (16, 0.3), (250, 0.004), (1024, 0.0),
-                      (64, 0.15), (512, 0.02)]:
-        cdf = np.asarray(_binom_count_cdf(lam_dt, n), np.float64)
-        ref = binom.cdf(np.arange(64), n, min(lam_dt, 1.0))
-        assert np.abs(cdf - ref).max() < 1e-6, (n, lam_dt)
-        assert np.all(np.diff(cdf) >= 0) and cdf.max() <= 1.0
-
-    # Inverse transport on the kernels' exact 23-bit uniform grid: the
-    # resulting count pmf equals the Binomial pmf to grid resolution.
-    n, lam_dt = 252, 0.006
-    cdf = np.asarray(_binom_count_cdf(lam_dt, n), np.float64)
-    grid = (np.arange(1 << 17) * 64 + 0.5) * 2.0 ** -23  # stride the grid
-    counts = (grid[:, None] > cdf[None, :]).sum(axis=1)
-    pmf_emp = np.bincount(counts, minlength=12)[:12] / grid.size
-    pmf_ref = binom.pmf(np.arange(12), n, lam_dt)
-    assert np.abs(pmf_emp - pmf_ref).max() < 1e-4
-
-
-def test_poisson_binom_cdf_matches_convolution():
-    """td-SVJ count table: the DP Poisson-binomial CDF equals a direct
-    numpy convolution over heterogeneous per-step probabilities, and
-    collapses to the Binomial table when λ is constant."""
-    from mcos_tpu.ops.pallas_kernels import (_binom_count_cdf,
-                                             _poisson_binom_cdf)
-
-    rng = np.random.default_rng(3)
-    p_steps = rng.uniform(0.0, 0.02, 300).astype(np.float32)
-    ours = np.asarray(_poisson_binom_cdf(p_steps), np.float64)
-    pmf = np.ones(1)
-    for p in p_steps.astype(np.float64):
-        pmf = np.convolve(pmf, [1.0 - p, p])
-    ref = np.cumsum(pmf)[:64]
-    assert np.abs(ours - ref).max() < 1e-6
-
-    # 1e-5 window: both tables are f32, but the DP accumulates over 252
-    # steps while the recurrence accumulates over 64 terms — their
-    # rounding differs at a few-ulp-per-step scale (measured 4e-6).
-    const = np.asarray(_poisson_binom_cdf(np.full(252, 0.006, np.float32)))
-    binom_tab = np.asarray(_binom_count_cdf(0.006, 252))
-    assert np.abs(const - binom_tab).max() < 1e-5
-
-
-def test_qe_kernel_compiles_and_shape():
-    """Interpreter smoke for the fused QE kernel (statistics are TPU-gated)."""
-    from mcos_tpu.ops.pallas_kernels import svj_terminal_qe_pallas
-
-    s, v, g = svj_terminal_qe_pallas(SVJParams(), 100.0, 0.5, 3,
-                                     num_paths=N, num_steps=8,
-                                     companion=True, rows=8)
-    for a in (s, v, g):
-        assert a.shape == (2, N)
-        assert bool(jnp.all(jnp.isfinite(a)))
-    assert bool(jnp.all(v >= 0.0))
+def _assert_same(kernel_out, scan_out, rtol):
+    for k, s in zip(kernel_out, scan_out):
+        if s is None:
+            assert k is None
+            continue
+        assert k.shape == s.shape
+        np.testing.assert_allclose(np.asarray(k), np.asarray(s), rtol=rtol)
 
 
 def test_ndtri_kernel_accuracy():
     """Acklam inverse-CDF helper vs scipy, f32-arithmetic tolerance."""
     from scipy.special import ndtri as ref
 
-    from mcos_tpu.ops.pallas_kernels import _ndtri_kernel
+    from mcos_tpu.ops.sobol import ndtri_acklam
 
     u = np.linspace(1e-5, 1 - 1e-5, 50_001)
-    ours = np.asarray(_ndtri_kernel(jnp.asarray(u, jnp.float32)), np.float64)
+    ours = np.asarray(ndtri_acklam(jnp.asarray(u, jnp.float32)), np.float64)
     exact = ref(np.asarray(u, np.float32).astype(np.float64))
     assert np.abs(ours - exact).max() < 5e-4
 
 
-def test_sincos_2pi_accuracy():
-    """Quadrant-folded Box-Muller trig vs f64 libm: ulp-level everywhere
-    in [0,1), including the quadrant boundaries (u = k/8) where the
-    folding switches — a dropped poly term once cost 5.5e-5 exactly
-    there. Pure mul/add/select algebra, so the bound holds bit-for-bit
-    on CPU and TPU alike (no transcendental unit involved)."""
-    from mcos_tpu.ops.pallas_kernels import _sincos_2pi
-
-    u = np.linspace(0.0, 1.0, 1_000_001, endpoint=False, dtype=np.float32)
-    edges = np.concatenate([np.arange(8) / 8.0 + eps
-                            for eps in (0.0, 1e-7, -1e-7, 3e-4)])
-    u = np.concatenate([u, np.clip(edges, 0.0, 1.0 - 1e-7).astype(np.float32)])
-    s, c = _sincos_2pi(jnp.asarray(u))
-    ref_s = np.sin(2.0 * np.pi * u.astype(np.float64))
-    ref_c = np.cos(2.0 * np.pi * u.astype(np.float64))
-    assert np.abs(np.asarray(s, np.float64) - ref_s).max() < 5e-7
-    assert np.abs(np.asarray(c, np.float64) - ref_c).max() < 5e-7
-    # exact unit circle to f32 roundoff (normals keep their radius)
-    assert np.abs(np.asarray(s, np.float64) ** 2
-                  + np.asarray(c, np.float64) ** 2 - 1.0).max() < 5e-7
-
-
-@tpu_only
-def test_qe_kernel_matches_scan_statistics():
-    """Fused QE kernel vs its differentiable scan twin: same law."""
-    from mcos_tpu.ops.pallas_kernels import svj_terminal_qe_pallas
-
-    p = SVJParams(kappa=3.0, theta=0.06, xi=0.4, rho=-0.6, v0=0.04,
-                  lambda_j=1.5, mu_j=-0.05, sigma_j=0.1)
-    n = 1 << 18
-    s_pal, v_pal, g_pal = svj_terminal_qe_pallas(
-        p, 22500.0, 0.5, 17, num_paths=n, num_steps=16, companion=True)
-    s_scan, v_scan, g_scan = simulate.simulate_terminal_qe(
-        p, 22500.0, 0.5, jax.random.key(17), num_paths=n, num_steps=16,
-        companion=True)
-    se = float(jnp.std(s_scan)) / np.sqrt(n)
-    assert abs(float(s_pal.mean()) - float(s_scan.mean())) < 6 * se
-    assert abs(float(v_pal.mean()) - float(v_scan.mean())) < 0.005
-    g_se = float(jnp.std(g_scan)) / np.sqrt(n)
-    assert abs(float(g_pal.mean()) - float(g_scan.mean())) < 6 * g_se
-    assert bool(jnp.all(v_pal >= 0.0))
-    # Dispersion agreement (distribution shape, not just the mean).
-    assert float(jnp.std(s_pal)) == pytest.approx(float(jnp.std(s_scan)),
-                                                  rel=0.02)
-
-
-@tpu_only
-def test_qe_pallas_price_matches_cos_oracle():
-    """The flagship accuracy claim: QE at 16 steps through the fused kernel
-    reproduces the semi-analytic COS price of the full SVJ model."""
-    from mcos_tpu.engine.pricer import MonteCarloEngine
-    from mcos_tpu.ops.cos_pricer import cos_price
-
-    p = SVJParams(kappa=3.0, theta=0.05, xi=0.4, rho=-0.6, v0=0.04,
-                  lambda_j=1.0, mu_j=-0.05, sigma_j=0.1)
-    spot, strike, T = 22500.0, 22500.0, 0.25
-    eng = MonteCarloEngine(p, num_paths=1 << 19, num_steps=64, seed=7,
-                           use_sobol=False, scheme="qe", backend="pallas")
-    res = eng.price(spot, strike, T)
-    ref = float(cos_price(p, spot, [strike], T, True)[0])
-    assert abs(res["price"] - ref) < max(4 * res["std_error"], 1.0)
-
-
 def test_draws_kernel_matches_scan_exactly():
-    """The Sobol/CRN draws kernel is deterministic given the draws, so the
-    interpreter pins it to the scan twin at f32-rounding tolerance — the
-    QMC production path is fully CPU-testable (unlike the PRNG kernels)."""
-    from mcos_tpu.ops.pallas_kernels import svj_terminal_from_draws_pallas
-
-    p = SVJParams(kappa=3.0, theta=0.06, xi=0.4, rho=-0.6, v0=0.04,
-                  lambda_j=1.5, mu_j=-0.05, sigma_j=0.1)
-    rng = np.random.default_rng(0)
-    n, steps = 2048, 20   # deliberately not multiples of block/chunk
-    z1 = rng.standard_normal((n, steps)).astype(np.float32)
-    z2 = rng.standard_normal((n, steps)).astype(np.float32)
-    uj = rng.uniform(size=(n, steps)).astype(np.float32)
-    zjs = rng.standard_normal((n, steps)).astype(np.float32)
-
-    s_pal, v_pal, g_pal = svj_terminal_from_draws_pallas(
-        p, 22500.0, 0.5, z1, z2, uj, zjs, antithetic=True, companion=True,
-        rows=8, chunk=8)
+    """Deterministic given the draws: the interpreted kernel and the scan
+    twin run the same f32 operations in the same order, per branch."""
+    z1, z2, u, zj = _draws(20, 2048)
+    ker = svj_terminal_from_draws_kernel(
+        P, 22500.0, 0.5, z1, z2, u, zj, antithetic=True, companion=True,
+        tile=256, interpret=True)
     s_b, v_b, g_b = simulate.simulate_terminal_from_draws(
-        p, 22500.0, 0.5, jnp.asarray(z1), jnp.asarray(z2), jnp.asarray(uj),
-        jnp.asarray(zjs), companion=True)
+        P, 22500.0, 0.5, z1, z2, u, zj, companion=True, steps_major=True)
     s_a, v_a, g_a = simulate.simulate_terminal_from_draws(
-        p, 22500.0, 0.5, -jnp.asarray(z1), -jnp.asarray(z2), jnp.asarray(uj),
-        -jnp.asarray(zjs), companion=True)
-
-    for pal, ref in [(s_pal[0], s_b), (s_pal[1], s_a), (v_pal[0], v_b),
-                     (v_pal[1], v_a), (g_pal[0], g_b), (g_pal[1], g_a)]:
-        np.testing.assert_allclose(np.asarray(pal), np.asarray(ref),
-                                   rtol=5e-5)
-
-    # steps-major input is the same computation.
-    s_sm, _, _ = svj_terminal_from_draws_pallas(
-        p, 22500.0, 0.5, z1.T, z2.T, uj.T, zjs.T, antithetic=True,
-        companion=True, rows=8, chunk=8, steps_major=True)
-    np.testing.assert_allclose(np.asarray(s_sm), np.asarray(s_pal), rtol=1e-6)
+        P, 22500.0, 0.5, -z1, -z2, u, -zj, companion=True, steps_major=True)
+    _assert_same(ker, (jnp.stack([s_b, s_a]), jnp.stack([v_b, v_a]),
+                       jnp.stack([g_b, g_a])), rtol=1e-6)
 
 
-@tpu_only
-def test_sobol_pallas_engine_matches_bs_oracle():
-    """Default production config (Sobol driver + Pallas draws kernel +
-    in-kernel PRNG jumps) against the degenerate-GBM BS oracle."""
+# odd step count; ragged last tile; a single partial tile.
+_SHAPES = {"odd_steps": (13, 512), "ragged": (8, 700), "one_tile": (6, 100)}
+
+
+@pytest.mark.parametrize("shape", sorted(_SHAPES))
+@pytest.mark.parametrize("companion", [True, False])
+@pytest.mark.parametrize("antithetic", [True, False])
+def test_draws_kernel_matches_scan_interpret(antithetic, companion, shape):
+    steps, paths = _SHAPES[shape]
+    draws = _draws(steps, paths, seed=steps + paths)
+    ker = svj_terminal_from_draws_kernel(
+        P, 100.0, 0.25, *draws, antithetic=antithetic, companion=companion,
+        tile=256, interpret=True)
+    ref = simulate.simulate_terminal_from_draws_pair(
+        P, 100.0, 0.25, *draws, antithetic=antithetic, companion=companion)
+    assert ker[0].shape == ((2 if antithetic else 1), paths)
+    _assert_same(ker, ref, rtol=1e-6)
+
+
+@pytest.mark.parametrize("tile", [16, 64, 512])
+def test_draws_kernel_tiling_and_tail_mask(tile):
+    """Results do not depend on the tile: every path of a ragged last tile
+    is simulated from its own column, and nothing past the end is written."""
+    draws = _draws(5, 300, seed=3)
+    ker = svj_terminal_from_draws_kernel(
+        P, 100.0, 0.25, *draws, companion=True, tile=tile, interpret=True)
+    ref = simulate.simulate_terminal_from_draws_pair(
+        P, 100.0, 0.25, *draws, companion=True)
+    _assert_same(ker, ref, rtol=1e-6)
+    # A path's result moves with its draws column (no cross-lane mixing).
+    perm = np.random.default_rng(1).permutation(300)
+    shuffled = svj_terminal_from_draws_kernel(
+        P, 100.0, 0.25, *(d[:, perm] for d in draws), companion=True,
+        tile=tile, interpret=True)
+    np.testing.assert_array_equal(np.asarray(shuffled[0]),
+                                  np.asarray(ker[0])[:, perm])
+
+
+def test_draws_kernel_rejects_non_power_of_two_tile():
+    with pytest.raises(ValueError, match="power of two"):
+        svj_terminal_from_draws_kernel(P, 100.0, 0.25, *_draws(4, 64),
+                                       tile=100, interpret=True)
+
+
+def test_draws_kernel_without_interpret_raises_off_gpu():
+    """No silent fallback: off a GPU the kernel refuses to run unless the
+    caller asks for the interpreter."""
+    if jax.default_backend() == "gpu":
+        pytest.skip("the default backend is a GPU")
+    with pytest.raises(RuntimeError, match="interpret=True"):
+        svj_terminal_from_draws_kernel(P, 100.0, 0.25, *_draws(4, 64))
+
+
+@pytest.mark.parametrize("platform,differentiable,want_kernel", [
+    ("gpu", False, True),
+    ("gpu", True, False),
+    ("cpu", False, False),
+    ("cpu", True, False),
+])
+def test_simulator_for(platform, differentiable, want_kernel):
+    sim = simulator_for(SVJ_EULER_DRAWS, differentiable=differentiable,
+                        platform=platform)
+    expected = (svj_terminal_from_draws_kernel if want_kernel
+                else simulate.simulate_terminal_from_draws_pair)
+    assert sim is expected
+
+
+def test_simulator_for_default_platform_and_unknown_family():
+    expected = (svj_terminal_from_draws_kernel
+                if jax.default_backend() == "gpu"
+                else simulate.simulate_terminal_from_draws_pair)
+    assert simulator_for(SVJ_EULER_DRAWS) is expected
+    with pytest.raises(ValueError, match="unknown simulator family"):
+        simulator_for("svj_qe_prng")
+
+
+def test_pricer_kernel_route_matches_scan_route():
+    """`mc_price_from_draws` gives the same price whichever simulator it
+    is handed (here the kernel through the interpreter)."""
+    from mcos_tpu.engine.pricer import mc_price_from_draws
+
+    z1, z2, _, zj = _draws(16, 1000, seed=5)
+    kw = dict(seed=3, steps_major=True)
+    kernel = functools.partial(svj_terminal_from_draws_kernel, tile=256,
+                               interpret=True)
+    a = mc_price_from_draws(P, 100.0, jnp.asarray([95.0, 105.0]), 0.25,
+                            z1, z2, None, zj, simulator=kernel, **kw)
+    b = mc_price_from_draws(P, 100.0, jnp.asarray([95.0, 105.0]), 0.25,
+                            z1, z2, None, zj,
+                            simulator=simulate.simulate_terminal_from_draws_pair,
+                            **kw)
+    for key in ("price", "std_error", "v_max"):
+        np.testing.assert_allclose(np.asarray(a[key]), np.asarray(b[key]),
+                                   rtol=1e-6)
+
+
+@pytest.mark.gpu
+def test_draws_kernel_compiled_matches_scan_on_gpu():
+    """The compiled kernel against the scan twin on the card. Same f32
+    inputs; XLA and Triton may order and contract (FMA) differently, so the
+    bound is a few f32 ulps compounded over the steps."""
+    draws = [jnp.asarray(d) for d in _draws(252, 10_000, seed=7)]
+    ker = svj_terminal_from_draws_kernel(P, 22500.0, 1.0, *draws,
+                                         companion=True)
+    ref = simulate.simulate_terminal_from_draws_pair(
+        P, 22500.0, 1.0, *draws, companion=True)
+    for k, r in zip(ker, ref):
+        np.testing.assert_allclose(np.asarray(k), np.asarray(r), rtol=2e-5,
+                                   atol=1e-7)
+
+
+@pytest.mark.gpu
+def test_sobol_engine_on_gpu_matches_bs_oracle():
+    """The served configuration (Sobol + bridge, draws kernel) against
+    Black–Scholes in the degenerate-SVJ limit."""
     from mcos_tpu.engine.pricer import MonteCarloEngine
     from mcos_tpu.ops.bs import bs_price
 
     p = gbm_params(0.2, r=0.065, q=0.012)
-    eng = MonteCarloEngine(p, num_paths=1 << 17, num_steps=252,
-                           use_sobol=True, backend="pallas")
+    eng = MonteCarloEngine(p, num_paths=1 << 17, num_steps=252)
     res = eng.price(22500.0, 22500.0, 0.25)
     ref = float(bs_price(22500.0, 22500.0, 0.25, 0.065, 0.012, 0.2, True))
     assert abs(res["price"] - ref) < max(4 * res["std_error"], 1.0)
 
 
-def test_qe_draws_kernel_matches_scan_exactly():
-    """QE draws kernel (Sobol/CRN QE path) pinned to its scan twin on the
-    interpreter — deterministic given the draws."""
-    from mcos_tpu.ops.pallas_kernels import svj_terminal_qe_from_draws_pallas
+@pytest.mark.gpu
+def test_bridge_product_is_full_precision_on_gpu():
+    """bb @ z must not run in TF32: M·Mᵀ = I/n holds to f32 accuracy."""
+    from mcos_tpu.ops.sobol import _bridge, brownian_bridge_matrix
 
-    p = SVJParams(kappa=3.0, theta=0.06, xi=0.4, rho=-0.6, v0=0.04,
-                  lambda_j=1.5, mu_j=-0.05, sigma_j=0.1)
-    rng = np.random.default_rng(0)
-    n, steps = 2048, 20
-    z_x = rng.standard_normal((steps, n)).astype(np.float32)
-    u_v = rng.uniform(0.01, 0.99, (steps, n)).astype(np.float32)
-    uj = rng.uniform(size=(steps, n)).astype(np.float32)
-    zjs = rng.standard_normal((steps, n)).astype(np.float32)
-    s_pal, v_pal, g_pal = svj_terminal_qe_from_draws_pallas(
-        p, 22500.0, 0.5, z_x, u_v, uj, zjs, antithetic=True, companion=True,
-        rows=8, chunk=8, steps_major=True)
-    s_ref, v_ref, g_ref = simulate.simulate_terminal_qe_from_draws(
-        p, 22500.0, 0.5, jnp.asarray(z_x), jnp.asarray(u_v), jnp.asarray(uj),
-        jnp.asarray(zjs), antithetic=True, companion=True, steps_major=True)
-    # 2e-3 window: the kernel inverts u_v with the Acklam ndtri, the scan
-    # with jax.scipy's — a few-ulp f32 gap that compounds through v.
-    np.testing.assert_allclose(np.asarray(s_pal), np.asarray(s_ref),
-                               rtol=2e-3)
-    np.testing.assert_allclose(np.asarray(g_pal), np.asarray(g_ref),
-                               rtol=1e-5)
-
-
-@tpu_only
-def test_qe_sobol_pallas_engine_matches_cos():
-    """Engine config (use_sobol + scheme='qe' + backend='pallas'): the fully
-    fused QMC-QE path against the COS oracle."""
-    from mcos_tpu.engine.pricer import MonteCarloEngine
-    from mcos_tpu.ops.cos_pricer import cos_price
-
-    p = SVJParams(kappa=3.0, theta=0.05, xi=0.4, rho=-0.6, v0=0.04,
-                  lambda_j=1.0, mu_j=-0.05, sigma_j=0.1)
-    eng = MonteCarloEngine(p, num_paths=1 << 17, num_steps=64, seed=9,
-                           use_sobol=True, scheme="qe", backend="pallas")
-    res = eng.price(22500.0, 22500.0, 0.25)
-    ref = float(cos_price(p, 22500.0, [22500.0], 0.25, True)[0])
-    assert abs(res["price"] - ref) < max(4 * res["std_error"], 2.0)
-
-
-@tpu_only
-def test_hhw_kernel_matches_scan_and_martingale():
-    """Fused HHW kernel: same recursion as the scan twin (ops/hhw.py) —
-    price statistics agree, and the left-point construction keeps
-    E[D S_T] = S0 e^{-qT} exact."""
-    from mcos_tpu.ops.hhw import HHWParams, hhw_terminal, vasicek_bond
-    from mcos_tpu.ops.pallas_kernels import hhw_terminal_pallas
-
-    p = HHWParams(kappa=2.0, theta=0.05, xi=0.4, v0=0.04, a=0.1, b=0.05,
-                  sigma_r=0.012, r0=0.05, rho_sv=-0.6, rho_sr=0.3, q=0.01)
-    spot, T, steps = 100.0, 2.0, 96
-    s, d = hhw_terminal_pallas(p, spot, T, 7, num_paths=1 << 19,
-                               num_steps=steps)
-    ds = d * s
-    se = float(ds.std()) / np.sqrt(ds.size / 2)
-    assert abs(float(ds.mean()) - spot * np.exp(-p.q * T)) < 4 * se
-    bse = float(d.std()) / np.sqrt(d.size / 2)
-    assert abs(float(d.mean()) - vasicek_bond(p, T)) < 4 * bse + 3e-4
-
-    ss, dd = hhw_terminal(p, spot, T, jax.random.key(3),
-                          num_paths=200_000, num_steps=steps)
-    pay_p = (jnp.maximum(s - 100.0, 0.0) * d).mean(axis=0)
-    pay_s = (jnp.maximum(ss - 100.0, 0.0) * dd).mean(axis=0)
-    joint = np.hypot(float(pay_p.std()) / np.sqrt(pay_p.shape[0]),
-                     float(pay_s.std()) / np.sqrt(pay_s.shape[0]))
-    assert abs(float(pay_p.mean()) - float(pay_s.mean())) < 4 * joint
-
-
-@tpu_only
-def test_svcj_kernel_matches_scan_and_oracle():
-    """Fused SVCJ kernel: same recursion as the scan twin (ops/svcj.py) —
-    MC price within joint bands of the scan, and both within the COS
-    oracle's 4σ + discretization envelope."""
-    from mcos_tpu.models.params import SVCJParams
-    from mcos_tpu.ops.pallas_kernels import svcj_terminal_pallas
-    from mcos_tpu.ops.svcj import svcj_cos_price, svcj_terminal
-
-    p = SVCJParams(kappa=3.0, theta=0.04, xi=0.5, rho=-0.7, v0=0.04,
-                   lambda_j=1.5, mu_j=-0.07, sigma_j=0.12,
-                   mu_v=0.08, rho_j=-0.6)
-    spot, T, steps = 22500.0, 0.25, 512
-    strike = spot
-    disc = np.exp(-float(p.r) * T)
-    exact = float(svcj_cos_price(p, spot, [strike], T, True)[0])
-
-    s_k, v_k, _ = svcj_terminal_pallas(p, spot, T, 11, num_paths=1 << 19,
-                                       num_steps=steps)
-    pay_k = jnp.maximum(s_k - strike, 0.0).mean(axis=0)
-    mc_k = disc * float(pay_k.mean())
-    se_k = disc * float(pay_k.std()) / np.sqrt(pay_k.shape[0])
-    assert abs(mc_k - exact) < 4 * se_k + 0.002 * exact, (mc_k, exact, se_k)
-    assert float(v_k.min()) >= 0.0
-
-    s_s, _, _ = svcj_terminal(p, spot, T, jax.random.key(5),
-                              num_paths=200_000, num_steps=steps)
-    pay_s = jnp.maximum(s_s - strike, 0.0).mean(axis=0)
-    mc_s = disc * float(pay_s.mean())
-    se_s = disc * float(pay_s.std()) / np.sqrt(pay_s.shape[0])
-    joint = np.hypot(se_k, se_s)
-    assert abs(mc_k - mc_s) < 4 * joint
-
-
-def test_td_kernel_compiles_and_shape():
-    """Interpreter smoke test for the time-dependent SVJ kernel."""
-    from mcos_tpu.ops.pallas_kernels import svj_terminal_td_pallas
-
-    p = SVJParams()
-    ones = np.ones(STEPS, np.float32)
-    sv, vv, gv = svj_terminal_td_pallas(
-        p, ones * p.theta, ones * p.xi, ones * p.lambda_j, 100.0, 0.5, 3,
-        num_paths=N, num_steps=STEPS, companion=True, rows=8)
-    for a in (sv, vv, gv):
-        assert a.shape == (2, N)
-        assert bool(jnp.all(jnp.isfinite(a)))
-    assert bool(jnp.all(vv >= 0.0))
-
-
-@tpu_only
-def test_td_kernel_matches_td_scan_and_cos():
-    """The td Pallas kernel implements the same dynamics as the td scan:
-    both must hit the chained-Riccati COS oracle on strongly time-varying
-    segments (the constant-param analogue of
-    test_svj_kernel_matches_scan_statistics)."""
-    from mcos_tpu.ops.pallas_kernels import svj_terminal_td_pallas
-    from mcos_tpu.ops.tdsvj import (cos_price_td, normalize_segments,
-                                    step_param_arrays)
-
-    p = SVJParams(kappa=3.0, theta=0.06, xi=0.5, rho=-0.7, v0=0.04,
-                  lambda_j=1.5, mu_j=-0.07, sigma_j=0.12, r=0.065, q=0.012)
-    spot, T = 22500.0, 0.25
-    ends, th, xi, lam = normalize_segments(
-        [0.10, 0.25], [0.02, 0.09], [0.8, 0.3], [3.0, 0.5], T)
-    n, steps = 1 << 20, 512
-    th_t, xi_t, lam_t = step_param_arrays(ends, th, xi, lam, T, steps)
-
-    strike = spot
-    exact = float(cos_price_td(p, spot, [strike], T, ends, th, xi, lam)[0])
-
-    s_pal, v_pal, _ = svj_terminal_td_pallas(
-        p, th_t, xi_t, lam_t, spot, T, 23, num_paths=n, num_steps=steps)
-    pay = jnp.maximum(s_pal - strike, 0.0).mean(axis=0)
-    disc = float(np.exp(-p.r * T))
-    mc = disc * float(pay.mean())
-    se = disc * float(pay.std()) / np.sqrt(n)
-    tol = 5 * se + 0.0015 * exact
-    assert abs(mc - exact) < tol, f"MC={mc:.3f} COS={exact:.3f} tol={tol:.3f}"
-    assert bool(jnp.all(v_pal >= 0.0))
-
-
-def test_stats_kernel_bridge_compiles_and_shapes():
-    """Interpreter smoke for the bridge survival accumulator outputs."""
-    from mcos_tpu.ops.pallas_kernels import svj_path_stats_pallas
-
-    stats = svj_path_stats_pallas(SVJParams(), 100.0, 0.5, 3,
-                                  num_paths=N, num_steps=STEPS,
-                                  companion=True, rows=8,
-                                  bridge=True, bridge_up=True,
-                                  bridge_log_b=float(np.log(1.15)))
-    assert {"log_surv", "g_log_surv"} <= set(stats)
-    for k in ("log_surv", "g_log_surv"):
-        assert stats[k].shape == (2, N)
-        # log survival probability: always <= 0 (possibly -inf on breach)
-        assert bool(jnp.all(stats[k] <= 0.0))
-    # bridge=False keeps the original surface
-    base = svj_path_stats_pallas(SVJParams(), 100.0, 0.5, 3,
-                                 num_paths=N, num_steps=STEPS,
-                                 companion=True, rows=8)
-    assert "log_surv" not in base
-
-
-@tpu_only
-def test_stats_kernel_bridge_matches_reiner_rubinstein():
-    """Pallas bridge barrier price pins to the continuous closed form in
-    the GBM limit — the same oracle as the scan twin's test
-    (tests/test_exotics.py::test_bridge_exact_at_coarse_steps)."""
-    from mcos_tpu.engine.exotics import ExoticEngine
-    from mcos_tpu.ops.exotics import barrier_bs
-
-    gp = gbm_params(0.25, r=0.05, q=0.01)
-    eng = ExoticEngine(gp, num_paths=1 << 18, num_steps=32, seed=7,
-                       backend="pallas")
-    for B, c, d in [(115.0, True, "up"), (88.0, False, "down")]:
-        cf = barrier_bs(100.0, 100.0, 0.5, 0.05, 0.01, 0.25, B, c,
-                        "out", d)
-        br = eng.price_barrier(100.0, 100.0, 0.5, B, is_call=c,
-                               monitoring="bridge")
-        assert abs(br["price"] - cf) < 4 * br["std_error"] + 2e-3, (B, br)
-
-
-@tpu_only
-def test_stats_kernel_bridge_matches_scan_under_svj():
-    """Kernel and scan accumulate the same survival algebra: bridge-weighted
-    knock-out means agree statistically under full SVJ."""
-    from mcos_tpu.engine.exotics import _price_exotic_core
-
-    p = SVJParams(kappa=2.0, theta=0.05, xi=0.4, rho=-0.6, v0=0.05,
-                  lambda_j=0.4, mu_j=-0.08, sigma_j=0.12)
-    kw = dict(kind="barrier", num_paths=1 << 17, num_steps=64,
-              is_call=True, knock="out", direction="up",
-              control_variate=False, monitoring="bridge")
-    pal = _price_exotic_core(p, 100.0, 100.0, 0.5, jax.random.key(9),
-                             118.0, 9, backend="pallas", **kw)
-    scan = _price_exotic_core(p, 100.0, 100.0, 0.5, jax.random.key(9),
-                              118.0, 9, backend="scan", **kw)
-    gap = abs(float(pal["price"]) - float(scan["price"]))
-    tol = 6 * (float(pal["std_error"]) + float(scan["std_error"]))
-    assert gap < tol, (float(pal["price"]), float(scan["price"]), tol)
-
-
-def test_stats_kernel_corridor_compiles_and_shapes():
-    """Interpreter smoke for the double-barrier corridor survival mode."""
-    from mcos_tpu.ops.pallas_kernels import svj_path_stats_pallas
-
-    stats = svj_path_stats_pallas(SVJParams(), 100.0, 0.5, 3,
-                                  num_paths=N, num_steps=STEPS,
-                                  companion=True, rows=8,
-                                  bridge=True, corridor=True,
-                                  bridge_log_b=float(np.log(1.20)),
-                                  bridge_log_l=float(np.log(0.85)))
-    assert {"log_surv", "g_log_surv"} <= set(stats)
-    for k in ("log_surv", "g_log_surv"):
-        assert stats[k].shape == (2, N)
-        assert bool(jnp.all(stats[k] <= 0.0))
-
-
-@tpu_only
-def test_stats_kernel_corridor_matches_image_series_oracle():
-    """Pallas double-KO bridge price pins to the corridor-density quadrature
-    in the GBM limit — the scan twin's oracle
-    (tests/test_double_barrier.py::test_bridge_double_ko_exact_at_coarse_steps)."""
-    from mcos_tpu.engine.exotics import ExoticEngine
-    from mcos_tpu.ops.exotics import double_barrier_bs, double_no_touch_bs
-
-    gp = gbm_params(0.3, r=0.05, q=0.01)
-    eng = ExoticEngine(gp, num_paths=1 << 18, num_steps=32, seed=7,
-                       backend="pallas")
-    cf = double_barrier_bs(100.0, 100.0, 0.5, 0.05, 0.01, 0.3, 85.0, 125.0)
-    res = eng.price_double_barrier(100.0, 100.0, 0.5, 85.0, 125.0)
-    assert abs(res["price"] - cf) < 4 * res["std_error"] + 2e-3, res
-    dnt = eng.price_double_no_touch(100.0, 0.5, 85.0, 125.0)
-    cf_dnt = double_no_touch_bs(100.0, 0.5, 0.05, 0.01, 0.3, 85.0, 125.0)
-    assert abs(dnt["price"] - cf_dnt) < 4 * dnt["std_error"] + 1e-3, dnt
-
-
-@tpu_only
-def test_stats_kernel_corridor_matches_scan_under_svj():
-    """Kernel and scan share the corridor image-series increment (literally
-    one function): double-KO means agree statistically under full SVJ."""
-    from mcos_tpu.engine.exotics import _price_exotic_core
-
-    p = SVJParams(kappa=2.0, theta=0.05, xi=0.4, rho=-0.6, v0=0.05,
-                  lambda_j=0.4, mu_j=-0.08, sigma_j=0.12)
-    kw = dict(kind="double_barrier", num_paths=1 << 17, num_steps=64,
-              is_call=True, knock="out", control_variate=False,
-              monitoring="bridge")
-    pal = _price_exotic_core(p, 100.0, 100.0, 0.5, jax.random.key(9),
-                             125.0, 9, 0.0, 85.0, backend="pallas", **kw)
-    scan = _price_exotic_core(p, 100.0, 100.0, 0.5, jax.random.key(9),
-                              125.0, 9, 0.0, 85.0, backend="scan", **kw)
-    gap = abs(float(pal["price"]) - float(scan["price"]))
-    tol = 6 * (float(pal["std_error"]) + float(scan["std_error"]))
-    assert gap < tol, (float(pal["price"]), float(scan["price"]), tol)
-
-
-def test_rbergomi_lift_kernel_compiles_and_shape():
-    """Interpreter smoke for the fused lift kernel (statistics TPU-gated)."""
-    from mcos_tpu.ops.pallas_kernels import rbergomi_lift_integrals_pallas
-    from mcos_tpu.ops.rough import rbergomi_lift
-
-    c, d, g, tail = rbergomi_lift(0.07, 0.5, 16)
-    i1, i2 = rbergomi_lift_integrals_pallas(
-        1.9, 0.5, 3, c, d, g, tail, 0.07, num_paths=N, num_steps=16,
-        rows=8)
-    assert i1.shape == (2, N) and i2.shape == (2, N)
-    assert bool(jnp.all(jnp.isfinite(i1)))
-    assert bool(jnp.all(i2 >= 0.0))
-
-
-@tpu_only
-def test_rbergomi_lift_kernel_matches_scan_statistics():
-    """Fused lift kernel vs its differentiable scan twin: same law of
-    (I1, I2) — and through the shared conditional-Black assembly, the
-    same smile."""
-    from mcos_tpu.ops.pallas_kernels import rbergomi_lift_integrals_pallas
-    from mcos_tpu.ops.rough import (RoughBergomiParams,
-                                    rbergomi_core_lifted, rbergomi_lift)
-
-    p = RoughBergomiParams(xi=0.04, eta=1.9, rho=-0.9, hurst=0.07)
-    n_paths, n_steps, T = 1 << 18, 128, 0.5
-    c, d, g, tail = rbergomi_lift(p.hurst, T, n_steps)
-    i1k, i2k = rbergomi_lift_integrals_pallas(
-        p.eta, T, 11, c, d, g, tail, p.hurst,
-        num_paths=n_paths, num_steps=n_steps, xi_flat=p.xi)
-    _, i1s, i2s = rbergomi_core_lifted(
-        p, T, jax.random.key(11), c, d, g, tail,
-        num_paths=n_paths, num_steps=n_steps)
-    for name, a, b, scale in [
-        ("I1 mean", i1k.mean(), i1s.mean(),
-         float(jnp.std(i1s)) / np.sqrt(n_paths)),
-        ("I2 mean", i2k.mean(), i2s.mean(),
-         float(jnp.std(i2s)) / np.sqrt(n_paths)),
-    ]:
-        assert abs(float(a) - float(b)) < 6 * scale, name
-    assert float(jnp.std(i1k)) == pytest.approx(float(jnp.std(i1s)),
-                                                rel=0.02)
-    assert float(jnp.std(i2k)) == pytest.approx(float(jnp.std(i2s)),
-                                                rel=0.03)
-
-
-def test_rbergomi_lift_stats_kernel_compiles_and_shape():
-    """Interpreter smoke for the fused lift PATH-STATS kernel (round 5:
-    asian/barrier/lookback under rough vol at scan speed). Statistics
-    are TPU-gated below; here: shapes, finiteness, and the max >= min
-    invariant that survives even the interpreter's zero PRNG."""
-    from mcos_tpu.ops.pallas_kernels import rbergomi_lift_stats_pallas
-    from mcos_tpu.ops.rough import RoughBergomiParams, rbergomi_lift
-
-    p = RoughBergomiParams(xi=0.04, eta=1.9, rho=-0.9, hurst=0.07)
-    c, d, g, tail = rbergomi_lift(p.hurst, 0.5, 16)
-    st = rbergomi_lift_stats_pallas(
-        (p.eta, p.rho, p.r, p.q, p.xi, 100.0), 0.5, 3, c, d, g, tail,
-        p.hurst, num_paths=N, num_steps=16, rows=8)
-    for k in ("s_terminal", "s_mean", "s_max", "s_min"):
-        assert st[k].shape == (2, N) and st[k].dtype == jnp.float32
-        assert bool(jnp.all(jnp.isfinite(st[k])))
-    assert bool(jnp.all(st["s_max"] >= st["s_min"]))
-    assert bool(jnp.all(st["s_max"] >= st["s_terminal"] - 1e-3))
-
-
-@tpu_only
-def test_rbergomi_lift_stats_kernel_matches_scan_statistics():
-    """Fused lift path-stats kernel vs its differentiable scan twin
-    (`ops/rough.py:rbergomi_path_stats_lifted`): same law of the
-    (terminal, mean, max, min) spot statistics, hence the same
-    asian/barrier/lookback prices."""
-    from mcos_tpu.ops.pallas_kernels import rbergomi_lift_stats_pallas
-    from mcos_tpu.ops.rough import (RoughBergomiParams, rbergomi_lift,
-                                    rbergomi_path_stats_lifted)
-
-    p = RoughBergomiParams(xi=0.04, eta=1.9, rho=-0.9, hurst=0.07)
-    n_paths, n_steps, T = 1 << 17, 128, 0.5
-    c, d, g, tail = rbergomi_lift(p.hurst, T, n_steps)
-    ker = rbergomi_lift_stats_pallas(
-        (p.eta, p.rho, p.r, p.q, p.xi, 100.0), T, 11, c, d, g, tail,
-        p.hurst, num_paths=n_paths, num_steps=n_steps)
-    scn = rbergomi_path_stats_lifted(
-        p, 100.0, T, jax.random.key(11), c, d, g, tail,
-        num_paths=n_paths, num_steps=n_steps)
-    for k in ("s_terminal", "s_mean", "s_max", "s_min"):
-        a, b = ker[k], scn[k]
-        se = float(jnp.std(b)) / np.sqrt(2 * n_paths)
-        assert abs(float(a.mean()) - float(b.mean())) < 6 * se, k
-        assert float(jnp.std(a)) == pytest.approx(float(jnp.std(b)),
-                                                  rel=0.03), k
-    # payoff-level agreement: ATM asian + up-and-out survival
-    for pay in (lambda st: jnp.maximum(st["s_mean"] - 100.0, 0.0),
-                lambda st: (st["s_max"] < 115.0).astype(jnp.float32)):
-        pa, pb = pay(ker), pay(scn)
-        se = float(jnp.std(pb)) / np.sqrt(2 * n_paths)
-        assert abs(float(pa.mean()) - float(pb.mean())) < max(6 * se, 5e-4)
+    n = 252
+    bb = jnp.asarray(brownian_bridge_matrix(n))
+    mmt = np.asarray(_bridge(bb, bb.T), np.float64)
+    np.testing.assert_allclose(mmt, np.eye(n) / n, atol=2e-6)

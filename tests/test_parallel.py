@@ -37,7 +37,7 @@ def test_sharded_price_svj_matches_single_device():
         mesh=m, num_paths=80_000, num_steps=64,
     )
     eng = MonteCarloEngine(svj, num_paths=80_000, num_steps=256,  # 256*0.25=64
-                           use_sobol=False, backend="scan", seed=11)
+                           use_sobol=False, seed=11)
     single = eng.price_batch(22500.0, [22000.0, 22500.0, 23000.0], 0.25)
     for i in range(3):
         joint = 5 * np.hypot(float(res["std_error"][i]),
@@ -336,7 +336,7 @@ def test_sharded_sobol_reconstructs_single_host_sequence():
     sh = pmesh.sharded_sobol_price(heston, S, strikes, T, mesh=m,
                                    num_paths=n, num_steps=16, seed=42)
     eng = MonteCarloEngine(heston, num_paths=n, num_steps=64,  # 64*0.25=16
-                           use_sobol=True, backend="scan", seed=42)
+                           use_sobol=True, seed=42)
     single = eng.price_batch(S, strikes, T)
     for i in range(3):
         assert float(sh["price"][i]) == pytest.approx(
@@ -357,7 +357,7 @@ def test_sharded_sobol_rqmc_variance_matches_single_device():
                                        num_paths=n, num_steps=8, seed=100 + s)
         reps_sh.append(float(sh["price"][0]))
         eng = MonteCarloEngine(heston, num_paths=n, num_steps=32,
-                               use_sobol=True, backend="scan", seed=100 + s)
+                               use_sobol=True, seed=100 + s)
         reps_single.append(eng.price(S, S, T)["price"])
     # identical seeds → identical points → near-identical replicate sets
     assert np.allclose(reps_sh, reps_single, rtol=2e-3)
@@ -373,7 +373,7 @@ def test_engine_auto_mesh_routes_and_matches():
     eng_auto = MonteCarloEngine(p, num_paths=1 << 15, num_steps=64,
                                 use_sobol=True, seed=7, mesh="auto")
     eng_one = MonteCarloEngine(p, num_paths=1 << 15, num_steps=64,
-                               use_sobol=True, seed=7, backend="scan")
+                               use_sobol=True, seed=7)
     pa = eng_auto.price(22500.0, 22500.0, 0.25)
     po = eng_one.price(22500.0, 22500.0, 0.25)
     assert abs(pa["price"] - po["price"]) < max(
@@ -383,7 +383,7 @@ def test_engine_auto_mesh_routes_and_matches():
     eng_auto2 = MonteCarloEngine(p, num_paths=64_000, num_steps=64,
                                  use_sobol=False, seed=9, mesh="auto")
     eng_one2 = MonteCarloEngine(p, num_paths=64_000, num_steps=64,
-                                use_sobol=False, seed=9, backend="scan")
+                                use_sobol=False, seed=9)
     pa2 = eng_auto2.price(22500.0, 22500.0, 0.25)
     po2 = eng_one2.price(22500.0, 22500.0, 0.25)
     assert abs(pa2["price"] - po2["price"]) < max(
@@ -405,8 +405,7 @@ def test_engine_auto_mesh_env_toggle(monkeypatch):
     # result dict still carries the single-device decomposition keys.
     monkeypatch.setenv("MCOS_AUTO_MESH", "1")
     eng_ref = MonteCarloEngine(p, num_paths=8192, num_steps=16,
-                               use_sobol=False, cv_mode="reference",
-                               backend="scan")
+                               use_sobol=False, cv_mode="reference")
     res = eng_ref.price(100.0, 100.0, 0.25)
     assert "raw_mc_price" in res and "bs_cv_adjustment" in res
 
@@ -1091,7 +1090,7 @@ def test_sharded_variance_swap_pins_closed_form():
 
 def test_families_engines_honor_auto_mesh(monkeypatch):
     """MCOS_AUTO_MESH=1 routes EVERY family engine through its sharded
-    driver (VERDICT r4 item 5: the serving toggle must cover the whole
+    driver (the serving toggle must cover the whole
     engine surface, not just pricer/termsvj/american); =0 single-device.
     Same-seed mesh-vs-single agreement within joint MC bands."""
     from mcos_tpu.engine.cliquet import CliquetEngine
@@ -1176,7 +1175,7 @@ def test_roughheston_engine_honors_auto_mesh(monkeypatch):
 
 
 # ─────────────────────────────────────────────────────────────────────────────
-# f32 accumulation audit at 1e8 payoffs (VERDICT r4 item 7): the device
+# f32 accumulation audit at 1e8 payoffs: the device
 # pools are (n, Σ, Σ²) in f32 (CLAUDE.md invariant) — at 2^27 payoffs per
 # device the mantissa carries ~7 decimal digits against a ~10⁹-wide Σ².
 # XLA's pairwise tree reduction keeps the relative error ~ε·log₂(n), not

@@ -199,3 +199,23 @@ def test_qe_scheme_via_engine():
     res = eng.price(SPOT, SPOT, 1.0)
     assert res["num_steps"] == 16
     assert abs(res["price"] - exact) < 4 * res["std_error"] + 0.003 * exact
+
+
+def test_sobol_draws_cache_is_bounded_by_bytes(monkeypatch):
+    """The device-resident Sobol cache evicts oldest-first past its byte
+    budget, and always keeps the entry just added."""
+    from mcos_tpu.engine import pricer
+
+    monkeypatch.setattr(pricer, "_SOBOL_DRAWS_CACHE", type(
+        pricer._SOBOL_DRAWS_CACHE)())
+    p = SVJParams()
+    one = pricer._draws_nbytes(pricer.MonteCarloEngine(
+        p, num_paths=1024, seed=0)._sobol_draws(8))
+    monkeypatch.setattr(pricer, "_SOBOL_DRAWS_CACHE_MAX_BYTES", 2 * one)
+    for seed in range(1, 5):
+        pricer.MonteCarloEngine(p, num_paths=1024, seed=seed)._sobol_draws(8)
+    keys = list(pricer._SOBOL_DRAWS_CACHE)
+    assert len(keys) == 2 and keys[-1] == ("euler", 8, 1024, 4)
+    monkeypatch.setattr(pricer, "_SOBOL_DRAWS_CACHE_MAX_BYTES", 1)
+    pricer.MonteCarloEngine(p, num_paths=1024, seed=9)._sobol_draws(8)
+    assert list(pricer._SOBOL_DRAWS_CACHE) == [("euler", 8, 1024, 9)]

@@ -69,17 +69,17 @@ def test_in_out_parity_with_rebate_per_path():
     kw = dict(kind="barrier", num_paths=4096, num_steps=16, is_call=True,
               direction="up", control_variate=False, monitoring="bridge")
     key = jax.random.key(4)
-    ko = _price_exotic_core(p, S, K, T, key, B_UP, 4, 0.0, 0.0, REB,
+    ko = _price_exotic_core(p, S, K, T, key, B_UP, 0.0, 0.0, REB,
                             knock="out", **kw)
-    ki = _price_exotic_core(p, S, K, T, key, B_UP, 4, 0.0, 0.0, REB,
+    ki = _price_exotic_core(p, S, K, T, key, B_UP, 0.0, 0.0, REB,
                             knock="in", **kw)
-    van = _price_exotic_core(p, S, K, T, key, B_UP, 4, 0.0, 0.0, 0.0,
+    van = _price_exotic_core(p, S, K, T, key, B_UP, 0.0, 0.0, 0.0,
                              knock="out", **dict(kw, kind="asian"))
     # same paths: vanilla from the same core isn't exposed; reconstruct
     # the parity target from KO(0)+KI(0) instead (also telescopes).
-    ko0 = _price_exotic_core(p, S, K, T, key, B_UP, 4, 0.0, 0.0, 0.0,
+    ko0 = _price_exotic_core(p, S, K, T, key, B_UP, 0.0, 0.0, 0.0,
                              knock="out", **kw)
-    ki0 = _price_exotic_core(p, S, K, T, key, B_UP, 4, 0.0, 0.0, 0.0,
+    ki0 = _price_exotic_core(p, S, K, T, key, B_UP, 0.0, 0.0, 0.0,
                              knock="in", **kw)
     df = float(np.exp(-float(p.r) * T))
     lhs = float(ko["price"]) + float(ki["price"])

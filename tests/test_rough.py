@@ -560,7 +560,7 @@ def test_lift_engine_routing_and_greeks():
 
 
 def test_lift_path_stats_match_exact_sampler():
-    """Round-5 pin (VERDICT r4 item 4): the lifted path-stats sampler
+    """Round-5 pin: the lifted path-stats sampler
     (`rbergomi_path_stats_lifted`, the O(n·m) factor scan) reproduces the
     exact-covariance sheet's path-dependent laws — asian mean, running
     max/min, terminal — so asian/barrier/lookback payoffs can ride the

@@ -105,7 +105,7 @@ def test_api_svcj_modes():
 
 
 def test_schema_rejects_divergent_compensator():
-    from pydantic import ValidationError
+    from mcos_tpu.api.validation import ValidationError
 
     with pytest.raises(ValidationError):
         api.schemas.SVCJRequest(spot=S, T=T,

@@ -171,8 +171,7 @@ def test_reset_simulator_degenerate_forward_start_matches_bs():
     sigma = 0.2
     p = gbm_params(sigma, r=R, q=Q)
     eng = TDSVJEngine(p, [T], [sigma**2], [1e-4], [0.0],
-                      num_paths=200_000, num_steps=128, seed=9,
-                      backend="scan")
+                      num_paths=200_000, num_steps=128, seed=9)
     t1 = 0.125
     out = eng.price_forward_start(S, t1, T, k=1.0, is_call=True)
     exact = forward_start_bs(out["t1_effective"], T, 1.0, R, Q, sigma, True)
@@ -189,8 +188,7 @@ def test_td_forward_start_differs_from_constant_blend():
 
     t1, k = 0.1, 1.0
     eng_td = TDSVJEngine(BASE, SEG_ENDS, THETAS, XIS, LAMS,
-                         num_paths=200_000, num_steps=200, seed=3,
-                         backend="scan")
+                         num_paths=200_000, num_steps=200, seed=3)
     td = eng_td.price_forward_start(S, t1, T, k=k)
 
     outs = []
@@ -226,8 +224,7 @@ def test_td_varswap_mc_roundtrip():
     from mcos_tpu.engine.termsvj import TDSVJEngine
 
     eng = TDSVJEngine(BASE, SEG_ENDS, THETAS, XIS, LAMS,
-                      num_paths=100_000, num_steps=256, seed=23,
-                      backend="scan")
+                      num_paths=100_000, num_steps=256, seed=23)
     out = eng.variance_swap(T)
     # 4σ MC band + 1% discretization/drift² allowance.
     tol = 4 * out["mc_std_error"] + 0.01 * out["fair_variance"]

@@ -17,7 +17,7 @@ def test_engine_mc_matches_cos_chain():
     """The engine's MC chain must hit its own COS oracle within bands."""
     eng = TDSVJEngine(SHARED, [0.1, 0.25], [0.02, 0.09], [0.8, 0.3],
                       [3.0, 0.5], num_paths=200_000, num_steps=256,
-                      seed=5, backend="scan")
+                      seed=5)
     strikes = np.array([0.95, 1.0, 1.05]) * S
     T = 0.25
     exact = eng.cos_chain(S, strikes, T)
@@ -30,7 +30,7 @@ def test_engine_mc_matches_cos_chain():
 
 def test_engine_cv_reduces_stderr():
     """The companion CV must not hurt (β* estimate) — compare stderrs."""
-    kw = dict(num_paths=100_000, num_steps=128, seed=7, backend="scan")
+    kw = dict(num_paths=100_000, num_steps=128, seed=7)
     cv = TDSVJEngine(SHARED, [0.25], [0.06], [0.5], [1.5],
                      control_variate=True, **kw)
     raw = TDSVJEngine(SHARED, [0.25], [0.06], [0.5], [1.5],
@@ -46,8 +46,7 @@ def test_engine_from_term_structure():
                           xi_curve={0.1: 0.7, 1.0: 0.5},
                           lambda_curve={0.1: 1.5, 1.0: 1.0})
     eng = TDSVJEngine.from_term_structure(ts, horizon=1.0, n_segments=4,
-                                          num_paths=50_000, num_steps=64,
-                                          backend="scan")
+                                          num_paths=50_000, num_steps=64)
     assert eng.seg_ends.size == 4 and eng.seg_ends[-1] == pytest.approx(1.0)
     row = eng.price(S, S, 0.5)
     assert row["price"] > 0 and np.isfinite(row["std_error"])
@@ -173,8 +172,7 @@ def test_td_cliquet_degenerate_matches_closed_form():
     sigma, T, n_per = 0.2, 1.0, 4
     p = gbm_params(sigma, r=R, q=Q)
     eng = TDSVJEngine(p, [T], [sigma**2], [1e-4], [0.0],
-                      num_paths=150_000, num_steps=64, seed=13,
-                      backend="scan")
+                      num_paths=150_000, num_steps=64, seed=13)
     out = eng.price_cliquet(T, n_periods=n_per, local_floor=0.0,
                             local_cap=0.05)
     exact = cliquet_bs(T, n_per, R, Q, sigma, 0.0, 0.05, 1.0)
@@ -187,12 +185,11 @@ def test_td_cliquet_regime_split_prices_differ():
     uniform-average constant model (the coupon accrual is regime-ordered)."""
     eng_td = TDSVJEngine(SHARED, [0.5, 1.0], [0.01, 0.16], [0.3, 0.3],
                          [0.0, 0.0], num_paths=150_000, num_steps=64,
-                         seed=3, backend="scan")
+                         seed=3)
     td = eng_td.price_cliquet(1.0, n_periods=4, local_cap=0.04)
     # Uniform constant θ at the time-average: same total variance budget.
     eng_c = TDSVJEngine(SHARED, [1.0], [0.085], [0.3], [0.0],
-                        num_paths=150_000, num_steps=64, seed=3,
-                        backend="scan")
+                        num_paths=150_000, num_steps=64, seed=3)
     cn = eng_c.price_cliquet(1.0, n_periods=4, local_cap=0.04)
     noise = 5 * (td["std_error"] + cn["std_error"])
     assert abs(td["price"] - cn["price"]) > noise, (td, cn)
@@ -218,8 +215,7 @@ def test_td_greeks_degenerate_match_bs():
     sigma, T = 0.2, 0.25
     p = gbm_params(sigma, r=R, q=Q)
     eng = TDSVJEngine(p, [T], [sigma**2], [1e-4], [0.0],
-                      num_paths=100_000, num_steps=64, seed=2,
-                      backend="scan")
+                      num_paths=100_000, num_steps=64, seed=2)
     g = eng.greeks(S, S, T)
     d_bs = float(bs_delta(S, S, T, R, Q, sigma, True))
     v_bs = float(bs_vega(S, S, T, R, Q, sigma))
@@ -234,7 +230,7 @@ def test_td_greeks_vega_sees_time_dependence():
     """v0-vega differs between calm→stressed and stressed→calm segment
     orders even when the two specs share the time-averaged θ, ξ, λ —
     only a consistent td model resolves the ordering."""
-    kw = dict(num_paths=150_000, num_steps=128, seed=4, backend="scan")
+    kw = dict(num_paths=150_000, num_steps=128, seed=4)
     up = TDSVJEngine(SHARED, [0.125, 0.25], [0.02, 0.10], [0.5, 0.5],
                      [1.0, 1.0], **kw)
     down = TDSVJEngine(SHARED, [0.125, 0.25], [0.10, 0.02], [0.5, 0.5],
@@ -263,7 +259,7 @@ def test_td_american_european_limit_matches_td_cos():
     the European td price; pin against the chained-Riccati COS oracle."""
     eng = TDSVJEngine(SHARED, [0.1, 0.25], [0.02, 0.09], [0.8, 0.3],
                       [3.0, 0.5], num_paths=150_000, num_steps=64,
-                      seed=17, backend="scan")
+                      seed=17)
     strike = 1.04 * S
     out = eng.price_american(S, strike, 0.25, is_call=False,
                              exercise_every=64)
@@ -279,7 +275,7 @@ def test_td_american_premium_nonnegative_and_orders():
     premium is larger when the stressed regime comes LATE (holding through
     calm first costs carry, so more exercise happens early → check both
     orderings price sanely)."""
-    kw = dict(num_paths=100_000, num_steps=64, seed=19, backend="scan")
+    kw = dict(num_paths=100_000, num_steps=64, seed=19)
     eng = TDSVJEngine(SHARED, [0.1, 0.25], [0.02, 0.09], [0.8, 0.3],
                       [3.0, 0.5], **kw)
     strike = 1.05 * S

@@ -127,19 +127,6 @@ def test_window_greeks_match_f64_fd():
     assert g["delta"] == pytest.approx(fd, abs=0.03), (g["delta"], fd)
 
 
-def test_pallas_interpreter_window_shapes():
-    from mcos_tpu.ops.pallas_kernels import svj_path_stats_pallas
-    from mcos_tpu.models.params import SVJParams
-
-    stats = svj_path_stats_pallas(SVJParams(), 100.0, 0.5, 3,
-                                  num_paths=512, num_steps=8,
-                                  companion=True, rows=8, bridge=True,
-                                  bridge_log_b=float(np.log(1.2)),
-                                  window=(2, 6))
-    assert stats["log_surv"].shape == (2, 512)
-    assert bool(np.all(np.asarray(stats["log_surv"]) <= 0.0))
-
-
 def test_api_window_roundtrip():
     from mcos_tpu.api.server import ApiError, handle_exotic
 
@@ -181,26 +168,6 @@ def test_sharded_window_matches_oracle():
     assert abs(float(res["price"]) - cf) < 4 * float(res["std_error"]) + 2e-3
 
 
-tpu_only = pytest.mark.skipif(
-    jax.default_backend() != "tpu",
-    reason="hardware PRNG not emulated by the Pallas interpreter")
-
-
-@tpu_only
-def test_pallas_window_matches_oracle_on_tpu():
-    """Fused-kernel window KO pins to the window_barrier_bs quadrature in
-    the GBM limit (the kernel's gated increments are the scan twin's)."""
-    eng = ExoticEngine(gbm_params(SIG, r=R_, q=Q_), num_paths=1 << 18,
-                       num_steps=64, seed=7, backend="pallas")
-    cf = wcf(0.125, 0.375)
-    res = eng.price_barrier(S, K, T, B_UP, True, knock="out",
-                            monitoring="bridge", window=(0.125, 0.375))
-    assert abs(res["price"] - cf) < 4 * res["std_error"] + 2e-3, (res, cf)
-
-
-# ─────────────────────────────────────────────────────────────────────────────
-# Windowed digitals + windowed corridors
-# ─────────────────────────────────────────────────────────────────────────────
 def test_window_no_touch_oracle_limits():
     df = float(np.exp(-R_ * T))
     a = ops_exotics.window_no_touch_bs(S, T, R_, Q_, SIG, B_UP, 0.0, T)

@@ -1,4 +1,4 @@
-/* mcos_tpu desk — vanilla-JS client of the TPU pricing API.
+/* mcos_tpu desk — vanilla-JS client of the pricing API.
  *
  * Role of the reference's js/app.js + js/charts.js, rebuilt from scratch:
  * no Chart.js CDN (zero-egress deployments), one tiny canvas plotting core,
